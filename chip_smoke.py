@@ -13,17 +13,29 @@ Phases (any failure exits non-zero before the result lines):
    the float32-accumulating policies) against the math oracle of
    ``kernels/ref.py``, on ragged shapes, for every precision policy, both
    distances, both folds, ``w_valid`` 0 and 1 and both multiset layouts;
-   each comparison must also catch a planted 1 % error.
+   each comparison must also catch a planted 1 % error. The batched gain
+   kernels at B = 1, 3 and 8 with a ``w_valid`` that mixes 0 and 1, and
+   each request of a batched launch bit for bit equal to its own unbatched
+   launch.
 3. The main path at the paper's size (N=50 000, l=5 000, k=10, dim=100):
    multiset evaluation in fused/flat, fused/loop and two_pass against the
    ``torch`` backend; greedy, stochastic and lazy greedy on the device plan
    against the host plan (identical indices and evaluation counts);
    multiset greedy against mincache greedy. Kernel launches are counted
    over this phase only.
-4. At the main path's shapes: each kernel against its plain version, then
-   timed with CUDA events beside its plain version, the cuBLAS Gram product
-   alone (a yardstick the port never calls), and the least time the card
-   could take (its bound).
+   Then the serving path: 64 tenants of (8 192, 100) through
+   ``SelectionService`` (64 dense requests with ragged k, 16 lazy, 16
+   stochastic) and one paper-size bucket (``run_selection_batch``, four
+   tenants of (50 000, 100), k = 10), every served result identical to the
+   tenant's unbatched call; launches, and the shapes each batched kernel
+   was launched at, are counted over this phase only.
+4. At the main path's shapes: each kernel against its plain version
+   (the batched kernels at every (B, n, m, d) the serving phase launched
+   them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
+   events beside its plain version, the cuBLAS Gram product alone (a
+   yardstick the port never calls), and the least time the card could
+   take (its bound). The batched kernels are timed at B = 64,
+   n = m = 8 192, d = 100.
 
 The last three lines are the card's name and power limit, a JSON object
 listing each kernel, and ``{"ok": true, "device": ...}``.
@@ -69,7 +81,15 @@ KERNELS = {
                   "src/repro/kernels/marginal_gain.py:124"),
     "gain_update_eval": ("src/repro_torch/csrc/marginal_gain.cu",
                          "src/repro/kernels/marginal_gain.py:185"),
+    "gain_eval_batched": ("src/repro_torch/csrc/marginal_gain.cu",
+                          "src/repro/kernels/marginal_gain.py:249"),
+    "gain_update_eval_batched": ("src/repro_torch/csrc/marginal_gain.cu",
+                                 "src/repro/kernels/marginal_gain.py:326"),
 }
+#: Kernels of the main path (phase 3); the batched two run on the serving
+#: path (phase 3b).
+MAIN_KERNELS = ("fused_eval", "two_pass_eval", "gain_eval", "gain_update_eval")
+SERVING_KERNELS = ("gain_eval_batched", "gain_update_eval_batched")
 
 #: Dense peaks per card (NVIDIA data sheets): fp32 outside the tensor cores,
 #: bf16/fp16 on the tensor cores, device memory bandwidth.
@@ -131,7 +151,8 @@ class Checker:
             caught = float((bad.float() - ref).abs().max()) / band
             if self.strict and not caught > 1.0:
                 raise AssertionError(f"{name} [{what}]: the band {band:.3e} "
-                                     f"misses the planted fault {label}")
+                                     f"misses the planted fault {label} "
+                                     f"({caught:.3g} of the band)")
             if caught < self.fault_over_band.get(key, (float("inf"),))[0]:
                 self.fault_over_band[key] = (caught, f"{what}, {label}")
         self.max_err[key] = max(self.max_err.get(key, 0.0), err)
@@ -283,6 +304,89 @@ def phase_kernels(check: Checker):
                   scale=scale)
 
 
+def phase_kernels_batched(check: Checker) -> int:
+    """The batched gain kernels against their plain versions, and each
+    request's outputs against its own unbatched launch (bit for bit).
+    Returns the number of requests compared bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.functions import SIM_ALPHA, SIM_BETA
+    from repro_torch.core.precision import FP32, resolve
+    from repro_torch.kernels import marginal_gain as mg
+
+    dev = torch.device("cuda")
+    affine = (SIM_ALPHA, SIM_BETA)
+    identical = 0
+    for B, n, m, d in ((1, 4099, 517, 100), (3, 1031, 101, 45),
+                       (8, 2053, 257, 129)):
+        for payload, dist in (("wide", "sqeuclidean"), ("unit", "sqeuclidean"),
+                              ("unit", "rbf")):
+            rng = np.random.default_rng(B * 1000 + d)
+            sigma, shift = (1.0, 2.0) if payload == "wide" \
+                else ((2 * d) ** -0.5, 0.1)
+            V = rng.normal(size=(B, n, d)) * sigma + shift
+            C = np.stack([V[b, rng.choice(n, size=m, replace=False)]
+                          for b in range(B)])
+            typical = 2 * d * sigma ** 2
+            if dist == "rbf":
+                typical = 2 * (1 - np.exp(-typical))
+            g = 2.0 if dist == "rbf" else 1.0
+            scale = g * 2 * float((V * V).sum(-1).max())
+            t = lambda a: torch.as_tensor(  # noqa: E731
+                np.asarray(a), dtype=torch.float32, device=dev).contiguous()
+            V, C, w = t(V), t(C), t(V[:, n // 2])
+            wv = t([(b + 1) % 2 for b in range(B)])  # mixes 0 and 1 (B > 1)
+            gamma = 1.0 if dist == "rbf" else None
+            folds = [("min", None, t(rng.uniform(0.5, 1.5, (B, n)) * typical))]
+            if payload == "unit":
+                folds.append(("max", affine, t(rng.uniform(0.0, 0.8, (B, n)))))
+            for pol in POLICIES:
+                p = resolve(pol)
+                for fold, aff, cache in folds:
+                    kw = dict(n_total=n, policy=p, rbf_gamma=gamma, fold=fold,
+                              affine=aff)
+                    tag = (f"B={B} n={n} m={m} d={d} {payload} {dist} {pol} "
+                           f"{fold}")
+                    got = mg.gain_eval_batched(V, C, cache, **kw)
+                    check("gain_eval_batched", got,
+                          mg.gain_eval_batched_plain(V, C, cache, **kw), pol,
+                          tag, scale=scale)
+                    gu, nc = mg.gain_update_eval_batched(V, C, cache, w, wv,
+                                                         **kw)
+                    gp, ncp = mg.gain_update_eval_batched_plain(
+                        V, C, cache, w, wv, **kw)
+                    check("gain_update_eval_batched", gu, gp, pol,
+                          tag + " gains", scale=scale)
+                    # at the half policies the min-folded cache must also
+                    # catch the plain version on the unrounded (fp32)
+                    # payload, as two_pass_eval's W does: both hold one
+                    # distance per row. On the H100 at fp16 an unrounded
+                    # payload moved the gains (which average n rounding
+                    # errors) by 0.87 of the band and the max-folded rbf
+                    # cache (a similarity) by 0.97; there the bit-identity
+                    # below with the unbatched launch shows the rounding.
+                    unrounded = () if pol == "fp32" or fold != "min" else ((
+                        "unrounded payload",
+                        mg.gain_update_eval_batched_plain(
+                            V, C, cache, w, wv, **dict(kw, policy=FP32))[1]),)
+                    check("gain_update_eval_batched", nc, ncp, pol,
+                          tag + " cache", scale=scale, faults=unrounded)
+                    for b in range(B):
+                        one = mg.gain_eval(V[b], C[b], cache[b], **kw)
+                        g1, nc1 = mg.gain_update_eval(
+                            V[b], C[b], cache[b], w[b], wv[b], **kw)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(one, got[b]) and
+                                torch.equal(g1, gu[b]) and
+                                torch.equal(nc1, nc[b])):
+                            raise AssertionError(
+                                f"batched kernels [{tag}]: request {b} differs "
+                                f"from its unbatched launch")
+                        identical += 1
+    return identical
+
+
 def report_kernel_checks(check: Checker):
     log(f"    {check.cases} comparisons; per kernel and policy: max abs err, "
         f"largest err / band (case), smallest planted fault / band (case)")
@@ -389,6 +493,136 @@ def phase_main_path():
     return walls
 
 
+def same_result(what, got, ref):
+    """A served (batched) result against its unbatched call: identical
+    indices, evaluations and trajectory."""
+    if got != ref:
+        raise AssertionError(f"{what}: served {got} != unbatched {ref}")
+
+
+def phase_serving(T=64, N=8192, DIM=100, N_PAPER=50_000):
+    """Multi-tenant serving on the card: T tenants of (N, DIM) and a bucket
+    of four (N_PAPER, DIM) ones. Returns ``(walls, stacked V of the T
+    tenants, stacked V of the four, launches of the served run, the
+    (B, n, m, d) shapes each batched kernel was launched at)``."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (EvalConfig, ExemplarClustering,
+                                  SelectionService, run_selection,
+                                  run_selection_batch, stochastic_greedy)
+    from repro_torch.core.service import _SelectionRequest
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    K = 10
+    cfg = EvalConfig(backend="cuda")
+    Xs = [blobs(N, DIM, centers=16, seed=100 + t)[0] for t in range(T)]
+    dense_ks = [4 + t % 7 for t in range(T)]            # ragged, 4..10
+    jobs = {
+        "dense": [dict(X=Xs[t], k=dense_ks[t]) for t in range(T)],
+        "lazy": [dict(X=Xs[t], k=K, kind="lazy") for t in range(16)],
+        "stochastic": [dict(X=Xs[t], k=K, kind="stochastic", eps=0.05,
+                            seed=t) for t in range(16)],
+    }
+
+    def buckets(reqs):
+        return len({_SelectionRequest(
+            X=r["X"], k=r["k"], fn="exemplar", params=(),
+            kind=r.get("kind", "dense"), seed=r.get("seed", 0),
+            eps=r.get("eps", 0.05), top_b=0, future=None).signature()
+            for r in reqs})
+
+    async def serve():
+        out, walls = {}, {}
+        async with SelectionService(cfg, max_batch=64, linger_s=0.01) as svc:
+            for name, reqs in jobs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                # a failed future raises here, and fails the script
+                out[name] = await asyncio.gather(*[
+                    svc.submit(r["X"], r["k"], kind=r.get("kind", "dense"),
+                               eps=r.get("eps", 0.05), seed=r.get("seed", 0))
+                    for r in reqs])
+                torch.cuda.synchronize()
+                walls[f"serve {name}"] = time.perf_counter() - t0
+            return out, walls, dict(svc.stats)
+
+    Xp = [blobs(N_PAPER, DIM, centers=16, seed=t)[0] for t in range(4)]
+    fp = [ExemplarClustering(X, cfg) for X in Xp]
+    # the (B, n, m, d) each batched kernel is launched at, for phase 4
+    shapes = {name: set() for name in SERVING_KERNELS}
+    real = {name: getattr(mg, name) for name in SERVING_KERNELS}
+
+    def recorded(name):
+        def launch(V, C, *a, **kw):
+            shapes[name].add((*V.shape[:2], C.shape[1], V.shape[2]))
+            return real[name](V, C, *a, **kw)
+        return launch
+
+    ops.LAUNCHES.clear()
+    try:
+        for name in SERVING_KERNELS:
+            setattr(mg, name, recorded(name))
+        served, walls, stats = asyncio.run(serve())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bucket = run_selection_batch(fp, kind="dense", k=K)
+        walls[f"run_selection_batch 4 x {N_PAPER}"] = time.perf_counter() - t0
+    finally:
+        for name in SERVING_KERNELS:
+            setattr(mg, name, real[name])
+    launches = dict(ops.LAUNCHES)
+    want = sum(buckets(reqs) for reqs in jobs.values())
+    log(f"    service stats {json.dumps(stats)}; signature buckets {want}")
+    if stats["dispatches"] != want or stats["batched_requests"] != T + 32:
+        raise AssertionError(f"expected one dispatch per signature bucket "
+                             f"({want}), got {stats}")
+    log(f"    launches (service + paper-size bucket): {json.dumps(launches)}")
+    log("    launch shapes (B, n, m, d): " + json.dumps(
+        {name: sorted(v) for name, v in shapes.items()}))
+
+    # the unbatched calls each served result is held against (their
+    # launches are not counted above)
+    fs, refs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for X, kb in zip(Xs, dense_ks):  # from numpy, as the service starts
+        fs.append(ExemplarClustering(X, cfg))
+        refs.append(run_selection(fs[-1], kind="dense", k=kb,
+                                  cand_rounds=np.arange(N)[None, :]))
+    torch.cuda.synchronize()
+    walls["sequential dense"] = time.perf_counter() - t0
+    for t, (got, ref) in enumerate(zip(served["dense"], refs)):
+        same_result(f"served dense tenant {t} k={dense_ks[t]}", got, ref)
+    for t, got in enumerate(served["lazy"]):
+        same_result(f"served lazy tenant {t}", got,
+                    run_selection(fs[t], kind="lazy", k=K))
+    for t, got in enumerate(served["stochastic"]):
+        same_result(f"served stochastic tenant {t}", got,
+                    stochastic_greedy(fs[t], K, eps=0.05, seed=t,
+                                      mode="device"))
+    for t, (got, f) in enumerate(zip(bucket, fp)):
+        same_result(f"paper-size bucket tenant {t}", got,
+                    run_selection(f, kind="dense", k=K,
+                                  cand_rounds=np.arange(N_PAPER)[None, :]))
+    log(f"  served {T} dense (k 4..10), 16 lazy, 16 stochastic requests at "
+        f"n={N} d={DIM} and a 4 x {N_PAPER} dense bucket: every result "
+        f"identical "
+        f"to its unbatched call (indices, evaluations, trajectory)")
+    log(f"    service requests/s (dense, {T} tenants): "
+        f"{T / walls['serve dense']:.2f}; {T} sequential unbatched "
+        f"run_selection calls: {T / walls['sequential dense']:.2f} "
+        f"requests/s")
+    log(f"    lazy {16 / walls['serve lazy']:.2f} requests/s, stochastic "
+        f"{16 / walls['serve stochastic']:.2f} requests/s")
+    V = torch.stack([f.V for f in fs])
+    return walls, V, torch.stack([f.V for f in fp]), launches, shapes
+
+
 def cuda_times(fn, reps: int, warmup: int = 2) -> list:
     """Per-call device times (ms) of ``fn`` by CUDA events, after warm-up."""
     import torch
@@ -410,8 +644,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
-def phase_timing(peaks: dict) -> dict:
-    """Per-kernel times at the main path's shapes (fp32 policy)."""
+def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
+    """Per-kernel times at the main path's shapes (fp32 policy); the
+    batched kernels held against their plain versions at every shape in
+    ``serve_shapes`` (on the serving phase's payloads ``V64`` and
+    ``Vpaper``) and timed at B = 64, n = m = 8 192."""
     import torch
 
     from repro_torch.core.distances import fp32_is_ieee
@@ -529,6 +766,70 @@ def phase_timing(peaks: dict) -> dict:
         library_ms=cuda_ms(lambda: Vb @ Vb.T, R),
         bound=bound(gain_flops + 2.0 * N * DIM,
                     gain_in + 4 * (DIM + 1) + 4 * (N + N)))
+    Bq, Nq, _ = V64.shape
+
+    def e0_caches(Vs):
+        return torch.stack([e0_distances(v, None, "sqeuclidean", FP32)
+                            for v in Vs]).contiguous()
+
+    cache64 = e0_caches(V64)
+    w64 = V64[:, 123].contiguous()
+    wv64 = torch.ones(Bq, device=dev)
+    out64 = torch.empty_like(cache64)
+    kwb = dict(n_total=Nq, policy=FP32)
+    # every (B, n, m, d) the serving path launched a batched kernel at: the
+    # first B tenants of its payload, m candidate rows of each (all of them
+    # where m = n), their e0 caches, and a winner folded at every request
+    payloads = {(Vs.shape[1], Vs.shape[2]): (Vs, caches) for Vs, caches in
+                ((V64, cache64), (Vpaper, e0_caches(Vpaper)))}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name in SERVING_KERNELS:
+        for B, n, m, d in sorted(serve_shapes[name]):
+            Vs, caches = payloads[(n, d)]
+            Vs, cache = Vs[:B], caches[:B]
+            C = Vs if m == n else torch.stack([
+                v[torch.randperm(n, generator=gen, device=dev)[:m]]
+                for v in Vs])
+            what = f"serving shape B={B} n={n} m={m}"
+            kws = dict(n_total=n, policy=FP32)
+            if name == "gain_eval_batched":
+                agree(name, mg.gain_eval_batched(Vs, C, cache, **kws),
+                      mg.gain_eval_batched_plain(Vs, C, cache, **kws), what)
+                continue
+            w, wv = Vs[:, 123].contiguous(), torch.ones(B, device=dev)
+            g, nc = mg.gain_update_eval_batched(Vs, C, cache, w, wv, **kws)
+            gp, ncp = mg.gain_update_eval_batched_plain(Vs, C, cache, w, wv,
+                                                        **kws)
+            agree(name, g, gp, what + " gains")
+            agree(name, nc, ncp, what + " cache")
+            del g, nc, gp, ncp
+    agree("gain_eval_batched", mg.gain_eval_batched(V64, V64, cache64, **kwb),
+          mg.gain_eval_batched_plain(V64, V64, cache64, **kwb),
+          f"B={Bq} m={Nq}")
+    g, nc = mg.gain_update_eval_batched(V64, V64, cache64, w64, wv64, **kwb)
+    gp, ncp = mg.gain_update_eval_batched_plain(V64, V64, cache64, w64, wv64,
+                                                **kwb)
+    agree("gain_update_eval_batched", g, gp, f"gains B={Bq} m={Nq}")
+    agree("gain_update_eval_batched", nc, ncp, f"cache B={Bq} n={Nq}")
+    del g, nc, gp, ncp
+    batched_flops = 2.0 * Bq * Nq * Nq * DIM
+    batched_in = 4 * (2 * Bq * Nq * DIM + Bq * Nq)
+    # cuBLAS's batched Gram product alone: (64, 8192, 8192) fp32, 17 GB out
+    bmm_ms = cuda_ms(lambda: torch.bmm(V64, V64.transpose(1, 2)), R)
+    rows["gain_eval_batched"] = dict(
+        **kernel_ms(lambda: mg.gain_eval_batched(V64, V64, cache64, **kwb)),
+        plain_ms=cuda_ms(lambda: mg.gain_eval_batched_plain(V64, V64, cache64,
+                                                            **kwb), R),
+        library_ms=bmm_ms,
+        bound=bound(batched_flops, batched_in + 4 * Bq * Nq))
+    rows["gain_update_eval_batched"] = dict(
+        **kernel_ms(lambda: mg.gain_update_eval_batched(
+            V64, V64, cache64, w64, wv64, cache_out=out64, **kwb)),
+        plain_ms=cuda_ms(lambda: mg.gain_update_eval_batched_plain(
+            V64, V64, cache64, w64, wv64, **kwb), R),
+        library_ms=bmm_ms,
+        bound=bound(batched_flops + 2.0 * Bq * Nq * DIM,
+                    batched_in + 4 * Bq * (DIM + 1) + 4 * 2 * Bq * Nq))
     for name, r in rows.items():
         r["main_rel_err"] = rel[name]
     return rows
@@ -629,20 +930,31 @@ def main() -> int:
     log("[2] kernels vs plain versions (and the math oracle) on the card")
     check = Checker()
     phase_kernels(check)
+    identical = phase_kernels_batched(check)
     report_kernel_checks(check)
+    log(f"    batched kernels: {identical} requests bit for bit equal to "
+        f"their unbatched launches (gains and folded cache)")
 
     log("[3] main path at the paper's size")
     ops.LAUNCHES.clear()
     walls = phase_main_path()
-    launches = dict(ops.LAUNCHES)
-    log(f"    launches: {json.dumps(launches)}")
+    main_launches = dict(ops.LAUNCHES)
+    log(f"    launches: {json.dumps(main_launches)}")
+    log("[3b] multi-tenant serving (SelectionService, run_selection_batch)")
+    serve_walls, V64, Vpaper, serve_launches, serve_shapes = phase_serving()
+    walls.update(serve_walls)
+    # each path's own launches: the main path's four kernels, the serving
+    # path's two
+    launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}
+    launches.update({k: serve_launches.get(k, 0) for k in SERVING_KERNELS})
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"main path launched no {missing}")
+        raise AssertionError(f"main and serving paths launched no {missing}")
 
     log("[4] timing at the main path's shapes (fp32, CUDA events)")
     peaks = peaks_for(torch.cuda.get_device_name(0))
-    rows = phase_timing(peaks)
+    rows = phase_timing(peaks, V64, Vpaper, serve_shapes)
+    del V64, Vpaper
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rows[name]

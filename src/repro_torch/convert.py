@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.evaluator import EvalConfig
-from repro_torch.core.functions import ExemplarClustering
+from repro_torch.core.functions import FUNCTIONS, ExemplarClustering, SubmodularFunction
 from repro_torch.core.multiset import PackedMultiset, resolve_device
 
 #: The JAX package's evaluation backends and their counterparts here.
@@ -48,6 +48,40 @@ def exemplar_from_arrays(V: np.ndarray, e0: Optional[np.ndarray] = None,
     return ExemplarClustering(np.asarray(V), cfg,
                               e0=None if e0 is None else np.asarray(e0),
                               device=device)
+
+
+def function_from_arrays(name: str, V: np.ndarray,
+                         e0: Optional[np.ndarray] = None,
+                         cfg: "EvalConfig | dict" = EvalConfig(), device=None,
+                         **params) -> SubmodularFunction:
+    """The zoo function registered as ``name`` over numpy ``V``; ``params``
+    are its constructor's own (``lam`` for graph cut, ``sat`` for saturated
+    coverage)."""
+    if name not in FUNCTIONS:
+        raise ValueError(f"unknown function {name!r}; registered: "
+                         f"{sorted(FUNCTIONS)}")
+    if isinstance(cfg, dict):
+        cfg = config_from_fields(cfg)
+    return FUNCTIONS[name](np.asarray(V), cfg,
+                           e0=None if e0 is None else np.asarray(e0),
+                           device=device, **params)
+
+
+def function_like(f, device=None) -> SubmodularFunction:
+    """The port's counterpart of a JAX zoo function object ``f``: read
+    through its ``spec``, ``V``, ``e0`` and ``cfg`` (numpy and
+    ``dataclasses.asdict``; nothing of JAX is imported here)."""
+    import dataclasses
+
+    params = {}
+    if f.spec.name == "graph_cut":
+        params["lam"] = f.spec.lam
+    elif f.spec.name == "saturated_coverage":
+        params["sat"] = f.spec.sat
+    return function_from_arrays(
+        f.spec.name, np.array(f.V), None if f.e0 is None
+        else np.array(f.e0), dataclasses.asdict(f.cfg), device=device,
+        **params)
 
 
 def packed_from_arrays(data: np.ndarray, lengths: np.ndarray,

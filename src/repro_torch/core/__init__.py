@@ -1,6 +1,7 @@
 """Core submodular exemplar-clustering library (the paper's contribution)."""
 from repro_torch.core.clustering import ExemplarModel, fit_exemplar_clustering
-from repro_torch.core.engine import OptResult, run_selection, validate_candidates
+from repro_torch.core.engine import (OptResult, run_selection, run_selection_batch,
+                                     stage_selection_batch, validate_candidates)
 from repro_torch.core.evaluator import (
     ChunkingError,
     EvalConfig,
@@ -9,16 +10,22 @@ from repro_torch.core.evaluator import (
     plan_chunks,
     work_matrix,
 )
-from repro_torch.core.functions import ExemplarClustering, FnSpec, SubmodularFunction
+from repro_torch.core.functions import (FUNCTIONS, ExemplarClustering, FacilityLocation,
+                                        FeatureBased, FnSpec, GraphCut, SaturatedCoverage,
+                                        SubmodularFunction)
 from repro_torch.core.multiset import PackedMultiset, pack_base_plus_candidates, pack_sets
 from repro_torch.core.optimizers import OPTIMIZERS, greedy, lazy_greedy, stochastic_greedy
 from repro_torch.core.precision import BF16, FP16, FP16_STRICT, FP32, PrecisionPolicy
+from repro_torch.core.service import SelectionService
 
 __all__ = [
     "BF16", "FP16", "FP16_STRICT", "FP32", "PrecisionPolicy",
     "ChunkingError", "EvalConfig", "bytes_per_set", "evaluate_multiset",
-    "plan_chunks", "work_matrix", "run_selection", "validate_candidates",
-    "ExemplarClustering", "FnSpec", "SubmodularFunction", "PackedMultiset",
+    "plan_chunks", "work_matrix", "run_selection", "run_selection_batch",
+    "stage_selection_batch", "validate_candidates", "SelectionService",
+    "FUNCTIONS", "ExemplarClustering", "FacilityLocation", "FeatureBased",
+    "GraphCut", "SaturatedCoverage", "FnSpec", "SubmodularFunction",
+    "PackedMultiset",
     "pack_base_plus_candidates", "pack_sets", "OPTIMIZERS", "OptResult",
     "greedy", "lazy_greedy", "stochastic_greedy", "ExemplarModel",
     "fit_exemplar_clustering",

@@ -19,6 +19,11 @@ choices:
   cache, taken mask, winner row, argmax and trajectory all stay on the
   device). The mesh plans of the reference are not ported yet.
 
+:func:`run_selection_batch` runs B independent requests of one signature
+per dispatch (the multi-tenant serving path of
+:mod:`repro_torch.core.service`): the same strategies over (B, …) state,
+ragged k as a per-request freeze mask.
+
 The reference runs all k rounds as ONE jitted ``lax.scan``. Here the dense
 and stochastic rounds enqueue their work with no host sync until the loop
 ends (no ``.item()``, ``.cpu()`` or ``bool(tensor)`` inside it); on the
@@ -30,7 +35,7 @@ takes one scalar sync per iteration to test its stopping rule.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -100,15 +105,21 @@ def _gain_tile_cap_elems(itemsize: int = 4) -> int:
     return _GAIN_TILE_CAP_ELEMS
 
 
-def _device_block_m(n: int, m: int) -> int:
+def _device_block_m(n: int, m: int, n_batch: int = 1) -> int:
     """Candidate block size bounding the torch backend's (n, Bm) gain tile,
     autotuned from the free-memory probe ``plan_chunks`` uses. The floor of
     8 lets the cap be exceeded only where chunking V itself is the right
-    tool."""
+    tool.
+
+    ``n_batch`` scales the tile height: a batched dispatch of B requests
+    keeps B (n, Bm) tiles' worth of state live, so a B = 1024 bucket sized
+    as if B = 1 would over-commit memory B×.
+    """
     cap_elems = _gain_tile_cap_elems()
-    if n * m <= cap_elems:
+    rows = n * max(n_batch, 1)
+    if rows * m <= cap_elems:
         return m
-    return max(8, min(m, cap_elems // max(n, 1)))
+    return max(8, min(m, cap_elems // max(rows, 1)))
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -403,6 +414,306 @@ def _select_scan(V, seed, row_aux, cand_rounds, w0, *, fn: FnSpec, kind: str,
 
 
 # ---------------------------------------------------------------------------
+# Batched rounds — B independent requests per dispatch
+#
+# Every carry leaf grows a leading B axis ((B, n) caches, (B, n) taken
+# masks, (B, d) winner rows, (B, n) CELF bounds); gains, argmax, fold and
+# top-B run per request. Ragged k rides as a per-request ``k_eff`` vector:
+# rounds t ≥ k_eff[b] freeze request b's carry (its transient fold still
+# produces the right trajectory value f(S_{k_eff})), emit the −1 sentinel
+# and count zero evaluations, so bucket-padding slots (k_eff = 0) are
+# inert. Per-request selections, trajectories and evaluation counts equal
+# B unbatched runs: scoring goes through the grid-over-B kernels (bit for
+# bit a request's unbatched launch) or a per-request torch reduction, and
+# every per-request reduction (distance column, mean) is taken on that
+# request's own row.
+# ---------------------------------------------------------------------------
+
+
+def _freeze_where(act, new, old):
+    """Per-request carry gate: take ``new`` leaves where the request is
+    active, keep ``old`` where it is frozen (``act`` is (B,) bool; every
+    leaf carries a leading B axis). Each leaf comes out a fresh tensor."""
+    if isinstance(new, tuple):
+        return tuple(_freeze_where(act, a, b) for a, b in zip(new, old))
+    return torch.where(act.reshape(act.shape + (1,) * (new.ndim - 1)), new,
+                       old)
+
+
+def _mark(taken, j):
+    """``taken`` with column j[b] of each row b set (a new tensor)."""
+    return taken.scatter(1, j[:, None], torch.ones_like(j[:, None],
+                                                        dtype=torch.bool))
+
+
+def make_batched_rounds_step(take, fold_score_val, k_eff):
+    """Batched :func:`make_rounds_step` — dense/stochastic rounds over a
+    leading request axis.
+
+    ``fold_score_val(cache, w_prev, cand_t) -> (gains (B, m), cache,
+    value (B,))`` folds each request's previous winner and scores its own
+    candidate row; ``take(idx (B,)) -> ((B, d) rows, idx)`` resolves the
+    per-request winners. ``k_eff`` (B,) is the ragged-k mask: requests with
+    t ≥ k_eff freeze. Nothing here reads a device value on the host.
+    """
+
+    def step(carry, cand_t, t: int):
+        cache, taken, w_prev = carry
+        gains, cache2, val = fold_score_val(cache, w_prev, cand_t)
+        live = ~torch.gather(taken, 1, cand_t)
+        gains = torch.where(live, gains, -torch.inf)
+        p = torch.argmax(gains, dim=1)  # first maximum per request
+        j = torch.gather(cand_t, 1, p[:, None])[:, 0]
+        best = torch.gather(gains, 1, p[:, None])[:, 0]
+        act = k_eff > t
+        # exhausted sample row → −1 sentinel, as the unbatched step; frozen
+        # rounds also emit −1 (the demux truncates them away)
+        j_out = torch.where(act & (best > -torch.inf), j, -1)
+        carry = _freeze_where(act, (cache2, _mark(taken, j), take(j)), carry)
+        scored = torch.where(act, torch.sum(live, dim=1).to(torch.int32), 0)
+        return carry, (j_out, val, scored)
+
+    return step
+
+
+def make_batched_lazy_step(take, fold, score_idx, value_of, top_b: int,
+                           max_iters: int, k_eff):
+    """Batched :func:`make_lazy_step` — per-request CELF bound state.
+
+    Each request carries its own (n,) stale bounds and freshness; the loop
+    runs while ANY request still fails the fresh-top invariant (or until
+    ``max_iters``). A certified or frozen request stops scoring at once (its
+    ``live`` lanes mask out), so per-request evaluation counts equal the
+    unbatched engine's: within a round a request is active for iterations
+    0..c_b−1, and c_b is what its unbatched loop would run. Each test of
+    the loop condition is one scalar host sync, as in the unbatched step.
+    Top-B ties break by lowest index (a stable descending sort per row).
+    The trajectory value is ``value_of`` of the folded cache, which frozen
+    requests (that skip the loop) need as well.
+    """
+
+    def step(carry, t: int):
+        cache, taken, w_prev, ub = carry
+        cache2 = fold(cache, w_prev)
+        act = k_eff > t
+        val = value_of(cache2)
+        fresh = torch.zeros_like(taken)
+        scored = torch.zeros_like(k_eff, dtype=torch.int32)
+        ub_c = ub
+        it = 0
+        while it < max_iters:
+            stale = torch.where(fresh | taken, -torch.inf, ub_c)
+            fresh_best = torch.amax(torch.where(fresh & ~taken, ub_c,
+                                                -torch.inf), dim=1)
+            active = (fresh_best < torch.amax(stale, dim=1)) & act
+            if not bool(torch.any(active)):  # one sync
+                break
+            top_ub, top_idx = torch.sort(stale, dim=1, descending=True,
+                                         stable=True)
+            top_ub, top_idx = top_ub[:, :top_b], top_idx[:, :top_b]
+            live = (top_ub > -torch.inf) & active[:, None]
+            gains_b = torch.where(live, score_idx(cache2, top_idx), -torch.inf)
+            ub_c = ub_c.scatter(1, top_idx, torch.where(
+                live, gains_b, torch.gather(ub_c, 1, top_idx)))
+            fresh = fresh.scatter(1, top_idx,
+                                  torch.gather(fresh, 1, top_idx) | live)
+            scored = scored + torch.sum(live, dim=1).to(torch.int32)
+            it += 1
+        j = torch.argmax(torch.where(fresh & ~taken, ub_c, -torch.inf), dim=1)
+        carry = _freeze_where(act, (cache2, _mark(taken, j), take(j), ub_c),
+                              carry)
+        return carry, (torch.where(act, j, -1), val,
+                       torch.where(act, scored, 0))
+
+    return step
+
+
+def make_batched_lazy_step_val(*args, **kwargs):
+    """The mesh form of :func:`make_batched_lazy_step` (each re-score's
+    trajectory value riding the round's one all-reduce) serves only the
+    batched mesh plans, which are not ported yet."""
+    raise NotImplementedError(
+        "make_batched_lazy_step_val serves the batched mesh plans on "
+        "torch.distributed: ROADMAP item A.7")
+
+
+def drive_selection_scan_batched(*, kind, k, top_b, pool, k_eff, cand_rounds,
+                                 cache0, w0, fold, score_idx, fold_score_val,
+                                 value_of):
+    """Batched :func:`drive_selection_scan` — k rounds of B requests.
+
+    ``pool`` is the (B, n, d) stacked payload; ``cand_rounds`` is (B, k, m)
+    (dense passes one row, (B, 1, m); lazy (B, 1, 0)); ``k_eff`` (B,) the
+    per-request effective k (bucket-padding slots pass 0). The callbacks
+    are the batched analogues of :func:`drive_selection_scan`'s:
+    ``fold(cache, (rows, idx)) -> cache``, ``score_idx(cache, idx (B, m))
+    -> (B, m)``, ``fold_score_val(cache, w_prev, cand_t) -> (gains, cache,
+    (B,) value)``, ``value_of(cache) -> (B,)``.
+
+    Returns ``(sel (k, B), traj (k, B), n_scored (B,))`` as device tensors.
+    """
+    B, n_pool = pool.shape[:2]
+    dev = pool.device
+    rows = torch.arange(B, device=dev)
+
+    def take(idx):
+        return (pool[rows, idx], idx)
+
+    taken = torch.zeros((B, n_pool), dtype=torch.bool, device=dev)
+    sel, vals, scored = [], [], []
+    if kind == "lazy":
+        step = make_batched_lazy_step(take, fold, score_idx, value_of, top_b,
+                                      celf_max_iters(n_pool, top_b), k_eff)
+        # round -1: per-request singleton gains seed the bounds (one eval
+        # per pool row for every request that runs ≥ 1 round)
+        ub0 = score_idx(cache0, torch.arange(n_pool, device=dev)
+                        .expand(B, n_pool))
+        carry = (cache0, taken, w0, ub0)
+        for t in range(k):
+            carry, (j, val, sc) = step(carry, t)
+            sel.append(j)
+            vals.append(val)
+            scored.append(sc)
+        cache, _, w_last, _ = carry
+        n_scored = torch.where(
+            k_eff > 0, n_pool + torch.sum(torch.stack(scored), dim=0), 0)
+    else:
+        step = make_batched_rounds_step(take, fold_score_val, k_eff)
+        carry = (cache0, taken, w0)
+        cand_row = cand_rounds[:, 0]  # dense: one row object every round
+        for t in range(k):
+            cand_t = cand_row if kind == "dense" else cand_rounds[:, t]
+            carry, (j, val, sc) = step(carry, cand_t, t)
+            sel.append(j)
+            vals.append(val)
+            scored.append(sc)
+        cache, _, w_last = carry
+        n_scored = torch.sum(torch.stack(scored), dim=0)
+
+    # one final fold for the last trajectory point (frozen requests fold
+    # their held winner transiently — still exactly f(S_{k_eff})). It is
+    # request b's point k_eff[b] − 1 whatever k_eff[b] is: the round-k_eff
+    # value of a frozen dense request came from the fused kernel's in-tile
+    # fold, while its unbatched run takes its last point from this fold.
+    final_val = value_of(fold(cache, w_last))
+    traj = torch.stack(vals[1:] + [final_val])
+    last = torch.clamp_min(k_eff - 1, 0)[None, :]
+    traj = traj.scatter(0, last, final_val[None, :])
+    return torch.stack(sel), traj, n_scored
+
+
+def _select_scan_batched(V, seed, row_aux, cand_rounds, w0, k_eff, *,
+                         fn: FnSpec, kind: str, k: int, top_b: int,
+                         distance: str, policy: PrecisionPolicy, block_m: int,
+                         backend: str, rbf_gamma: Optional[float]):
+    """All k rounds of B independent requests on the device.
+
+    The batched mirror of :func:`_select_scan`: ``V (B, n, d)``, ``seed /
+    row_aux (B, n)``, ``cand_rounds (B, k, m)``, ``w0 (B, d)``, ``k_eff
+    (B,)``. The cache-protocol helpers broadcast over the leading axis; the
+    index-addressed ones (graph cut's ``gains_index_extra`` / ``fold_aux``)
+    and the per-request reductions run request by request. On the ``cuda``
+    backend scoring goes through the grid-over-B kernels, and a
+    fused-eligible function's dense/stochastic round is ONE launch of
+    ``gain_update_eval_batched`` whatever B is; its new caches go to a fresh
+    buffer every round (never the one the launch reads, also after a
+    request's carry was frozen by ``torch.where``). ``seed`` is the freshly
+    stacked payload of :func:`stage_selection_batch`, so nothing here writes
+    a function's own ``cache_seed``.
+    """
+    pair = dist_mod.resolve_pairwise(distance)
+    B, n = V.shape[:2]
+    dev = V.device
+    rows = torch.arange(B, device=dev)
+    seedf = seed.to(torch.float32)
+
+    def means(stat):
+        # each request's mean over its own row, as its unbatched run takes it
+        return torch.stack([torch.mean(stat[b]) for b in range(B)])
+
+    v0 = means(fx.stat_rows(fn, seedf, row_aux))
+
+    def value_of(cache):
+        vec, aux = cache
+        return fx.value_from_stat(fn, v0, means(fx.stat_rows(fn, vec, row_aux)),
+                                  aux, n)
+
+    def fold(cache, w):
+        vec, aux = cache
+        row, idx = w
+        dw = torch.stack([pair(V[b], row[b][None, :], policy)[:, 0]
+                          for b in range(B)])
+        folded = fx.fold_vec_rows(fn, vec, dw.to(torch.float32))
+        new_aux = aux if fn.name != "graph_cut" else torch.stack([
+            fx.fold_aux(fn, vec[b], aux[b], idx[b], 0, n) for b in range(B)])
+        ok = idx >= 0
+        return (torch.where(ok[:, None], folded, vec),
+                torch.where(ok, new_aux, aux))
+
+    tmpl = fx.kernel_template(fn)
+    if backend == "cuda" and tmpl is not None:
+        from repro_torch.kernels import ops as kops
+
+        def score(sc, C):
+            return kops.marginal_gain(
+                V, C, sc, policy=policy, rbf_gamma=rbf_gamma, fold=tmpl[0],
+                score_affine=tmpl[1])
+    else:
+
+        def score(sc, C):
+            return torch.stack([
+                _score_blocked(V[b], C[b], sc[b], pair, policy, block_m,
+                               fn=fn, row_aux=row_aux[b])
+                for b in range(B)])
+
+    # the dense strategy scores one candidate row every round: its payload
+    # is gathered once (the row object is kept, so identity is safe)
+    gathered = [None, None]
+
+    def candidates(idx):
+        if gathered[0] is not idx:
+            gathered[:] = [idx, V[rows[:, None], idx]]
+        return gathered[1]
+
+    def score_idx(cache, idx):
+        vec, _aux = cache
+        gains = score(fx.score_cache_rows(fn, vec, row_aux), candidates(idx))
+        if fn.name != "graph_cut":
+            return gains
+        return gains + torch.stack([
+            fx.gains_index_extra(fn, vec[b], idx[b], 0, n, n)
+            for b in range(B)])
+
+    fold_score_val = None
+    if kind != "lazy":
+        if backend == "cuda" and fx.kernel_fused_ok(fn) and tmpl is not None:
+            from repro_torch.kernels import ops as kops
+
+            def fold_score_val(cache, w_prev, cand_t):
+                vec, aux = cache
+                row, idx = w_prev
+                gains, vec2 = kops.fused_gain_update(
+                    V, candidates(cand_t), vec, row, policy=policy,
+                    rbf_gamma=rbf_gamma, fold=tmpl[0], score_affine=tmpl[1],
+                    w_valid=(idx >= 0).to(torch.float32))
+                cache2 = (vec2, aux)  # fused-eligible functions carry no aux
+                return gains, cache2, value_of(cache2)
+        else:
+
+            def fold_score_val(cache, w_prev, cand_t):
+                cache2 = fold(cache, w_prev)
+                return score_idx(cache2, cand_t), cache2, value_of(cache2)
+
+    w0c = (w0.to(V.dtype), torch.full((B,), -1, dtype=torch.long, device=dev))
+    cache0 = (seedf, torch.zeros((B,), dtype=torch.float32, device=dev))
+    return drive_selection_scan_batched(
+        kind=kind, k=k, top_b=top_b, pool=V, k_eff=k_eff,
+        cand_rounds=cand_rounds, cache0=cache0, w0=w0c, fold=fold,
+        score_idx=score_idx, fold_score_val=fold_score_val,
+        value_of=value_of)
+
+
+# ---------------------------------------------------------------------------
 # Engine entry point
 # ---------------------------------------------------------------------------
 
@@ -485,3 +796,166 @@ def run_selection(
             f"re-select a taken index")
     traj = [float(x) for x in traj.cpu().tolist()]
     return OptResult(sel, traj[-1] if traj else 0.0, traj, int(n_scored))
+
+
+def _stack_batch_payload(fs: Sequence[SubmodularFunction]) -> dict:
+    """Stack B same-signature requests into one (B, …) payload on their
+    device: ``torch.stack`` of the functions' resident tensors, so V never
+    leaves the device. The stacked seed is a fresh buffer (a function's
+    ``cache_seed`` may alias its resident ``d_e0``, and the engine must not
+    write it)."""
+    f0 = fs[0]
+    dev = f0.device
+    w0 = [f.e0 if f.e0 is not None else torch.zeros(
+        (f.dim,), dtype=f0.V.dtype, device=dev) for f in fs]
+    return {"V": torch.stack([f.V for f in fs]),
+            "seed": torch.stack([f.cache_seed.to(torch.float32) for f in fs]),
+            "aux": torch.stack([f.row_aux for f in fs]),
+            "w0": torch.stack(w0).to(f0.V.dtype)}
+
+
+def stage_selection_batch(fs: Sequence[SubmodularFunction]
+                          ) -> Optional[dict]:
+    """Stack a bucket's payload ahead of its dispatch (single use: one
+    ``run_selection_batch(..., staged=...)`` call with the same ``fs``).
+
+    The stacking is enqueued on the calling thread's current CUDA stream,
+    so it is ordered with any dispatch on that stream: no copy can race its
+    use, and none overlaps a dispatch (that needs a second stream, an event
+    and ``record_stream``, and is later work).
+    """
+    return _stack_batch_payload(fs) if fs else None
+
+
+def run_selection_batch(
+    fs: Sequence[SubmodularFunction],
+    *,
+    kind: str,                        # "dense" | "stochastic" | "lazy"
+    k: int,
+    ks: Optional[Sequence[int]] = None,
+    cand_rounds: Optional[np.ndarray] = None,
+    top_b: int = 0,
+    block_m: Optional[int] = None,
+    plan: str = "device",
+    staged: Optional[dict] = None,
+) -> list[OptResult]:
+    """Solve B independent selection requests in one batched dispatch.
+
+    Every request in ``fs`` must share one signature — function spec,
+    (n, d) payload shape and dtype, device and ``EvalConfig`` — which is
+    what the serving layer's bucketing guarantees. ``k`` is the shared round
+    count; ``ks`` optionally gives each request its own effective k ≤ k
+    (request b freezes after ``ks[b]`` rounds and its result is truncated
+    to ``ks[b]``; ``ks[b] = 0`` marks an inert bucket-padding slot).
+
+    ``cand_rounds`` is (B, k, m) per-request candidate indices for the
+    dense/stochastic strategies; dense may pass None for the whole ground
+    set. Per-request selections, trajectories and evaluation counts equal B
+    :func:`run_selection` calls — only the launches are shared. ``staged``
+    optionally passes the payload :func:`stage_selection_batch` built for
+    the same ``fs``. Only ``plan="device"`` runs; the batched mesh plans
+    raise ``NotImplementedError`` (ROADMAP A.7).
+    """
+    if not fs:
+        return []
+    if plan in ("device_sharded", "device_sharded_pool"):
+        raise NotImplementedError(
+            f"batched execution plan {plan!r} is not ported yet: the mesh "
+            f"plans on torch.distributed are ROADMAP item A.7")
+    if plan != "device":
+        raise ValueError(f"unknown batched execution plan {plan!r}")
+    f0 = fs[0]
+    B = len(fs)
+    fn = f0.spec
+    for f in fs[1:]:
+        if f.spec != fn:
+            raise ValueError(
+                f"batched requests must share one function spec, got "
+                f"{fn} and {f.spec}")
+        if f.V.shape != f0.V.shape or f.V.dtype != f0.V.dtype \
+                or f.device != f0.device:
+            raise ValueError(
+                f"batched requests must share one (n, d) payload shape, "
+                f"dtype and device, got {tuple(f0.V.shape)} {f0.V.dtype} "
+                f"on {f0.device} and {tuple(f.V.shape)} {f.V.dtype} on "
+                f"{f.device} — bucket by signature before dispatching")
+        if f.cfg != f0.cfg:
+            raise ValueError(
+                "batched requests must share one EvalConfig (distance / "
+                "policy / backend pick the dispatch)")
+    ks = [int(k)] * B if ks is None else [int(x) for x in ks]
+    if len(ks) != B:
+        raise ValueError(f"ks has {len(ks)} entries for {B} requests")
+    if any(kb < 0 or kb > k for kb in ks):
+        raise ValueError(f"per-request k must lie in [0, {k}], got {ks}")
+    if k == 0 or all(kb == 0 for kb in ks):
+        return [OptResult([], 0.0, [], 0) for _ in fs]
+    if fn.name not in fx.DEVICE_PLAN_ELIGIBLE:
+        raise ValueError(
+            f"function {fn.name!r} has no n-aligned vec cache to batch-scan "
+            f"over — it runs on the host execution plans only")
+    policy = f0.cfg.resolved_policy()
+    backend = "cuda" if f0.cfg.backend == "cuda" else "torch"
+    if fx.kernel_template(fn) is None:
+        backend = "torch"
+    if backend == "cuda" and f0.cfg.distance not in dist_mod.MXU_ELIGIBLE:
+        raise ValueError(
+            f"device plans with the cuda backend support "
+            f"{sorted(dist_mod.MXU_ELIGIBLE)}, got {f0.cfg.distance!r}")
+    rbf_gamma = dist_mod.RBF_GAMMA \
+        if (backend == "cuda" and f0.cfg.distance == "rbf") else None
+    n = f0.n
+
+    if kind == "lazy":
+        top_b = max(1, min(top_b or 256, n))
+        cand_rounds = np.zeros((B, 1, 0), np.int64)
+        m_widest = n
+    else:
+        if cand_rounds is None:
+            if kind != "dense":
+                raise ValueError(f"strategy {kind!r} needs cand_rounds")
+            cand_rounds = np.broadcast_to(
+                np.arange(n, dtype=np.int64)[None, None, :], (B, 1, n))
+        cand_rounds = np.asarray(cand_rounds)
+        if cand_rounds.ndim != 3 or cand_rounds.shape[0] != B:
+            raise ValueError(
+                f"batched cand_rounds must be (B, k, m), got "
+                f"{cand_rounds.shape} for B={B}")
+        if kind == "dense" and cand_rounds.shape[1] != 1:
+            cand_rounds = cand_rounds[:, :1]
+        for b, kb in enumerate(ks):
+            if kb == 0:
+                continue
+            n_cand = len(np.unique(
+                cand_rounds[b, 0] if kind == "dense" else cand_rounds[b]))
+            if kb > n_cand:
+                raise ValueError(
+                    f"request {b}: cannot select k={kb} exemplars from "
+                    f"{n_cand} distinct candidates")
+        m_widest = cand_rounds.shape[2]
+
+    bm = block_m if block_m is not None \
+        else _device_block_m(n, m_widest, n_batch=B)
+    payload = staged if staged is not None else _stack_batch_payload(fs)
+    dev = f0.device
+    sel, traj, n_scored = _select_scan_batched(
+        payload["V"], payload["seed"], payload["aux"],
+        torch.as_tensor(np.array(cand_rounds, np.int64),
+                        device=dev),
+        payload["w0"], torch.as_tensor(ks, dtype=torch.long, device=dev),
+        fn=fn, kind=kind, k=k, top_b=top_b, distance=f0.cfg.distance,
+        policy=policy, block_m=bm, backend=backend, rbf_gamma=rbf_gamma)
+    sel = sel.cpu().numpy()            # (k, B)
+    traj = traj.cpu().numpy()          # (k, B)
+    n_scored = n_scored.cpu().numpy()  # (B,)
+    out = []
+    for b, kb in enumerate(ks):
+        sb = [int(x) for x in sel[:kb, b]]
+        if any(x < 0 for x in sb):
+            bad = sb.index(-1)
+            raise ValueError(
+                f"request {b}, round {bad} had no untaken candidate (its "
+                f"sample row is exhausted by earlier selections)")
+        tb = [float(x) for x in traj[:kb, b]]
+        out.append(OptResult(sb, tb[-1] if tb else 0.0, tb, int(n_scored[b])))
+    return out

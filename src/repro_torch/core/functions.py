@@ -20,9 +20,9 @@ The protocol helpers below (``gains_rows`` / ``fold_vec_rows`` /
 ``stat_rows`` / ``value_from_stat`` / …) are the ONE definition of each
 objective's arithmetic, dispatched on a hashable :class:`FnSpec`; the host
 protocol methods and the device plan both call them, which is what makes
-their selections agree. The helpers carry every objective of the reference's
-zoo; this package ports ``ExemplarClustering`` (the other classes come in a
-later slice).
+their selections agree. The zoo: ``ExemplarClustering`` (the paper's
+function), ``FacilityLocation``, ``GraphCut``, ``SaturatedCoverage`` and the
+host-plan-only ``FeatureBased``, registered by name in :data:`FUNCTIONS`.
 
 Similarity objectives use ONE transform of the configured distance,
 ``s(x, y) = relu(SIM_ALPHA + SIM_BETA · d(x, y))``, which the CUDA gain
@@ -39,6 +39,7 @@ from repro_torch.core import distances as dist_mod
 from repro_torch.core.evaluator import EvalConfig, e0_distances, evaluate_multiset
 from repro_torch.core.multiset import (PackedMultiset, pack_base_plus_candidates,
                                        pack_sets, resolve_device)
+from repro_torch.core.precision import PrecisionPolicy
 
 #: Similarity transform s = relu(SIM_ALPHA + SIM_BETA · d): the ONE affine
 #: the kernels evaluate in-tile.
@@ -187,6 +188,19 @@ def value_from_stat(spec: FnSpec, v0, mean_stat, aux=0.0, n_total=1):
     if spec.name == "graph_cut":
         return mean_stat - spec.lam * aux / n_total
     return mean_stat
+
+
+def _saturation_caps(V, sat: float, distance: str, policy: PrecisionPolicy,
+                     block: int) -> torch.Tensor:
+    """cap_i = sat · Σ_j s(d(v_i, v_j)) in (n, block) column tiles (the
+    saturated-coverage ceiling — one O(n²·d) pass at construction). The
+    tiles' float32 row sums are added tile by tile, in column order, as the
+    reference adds its mapped blocks."""
+    pair = dist_mod.resolve_pairwise(distance)
+    parts = [torch.sum(similarity(pair(V, V[s:s + block], policy))
+                       .to(torch.float32), dim=1)
+             for s in range(0, V.shape[0], block)]
+    return sat * torch.sum(torch.stack(parts), dim=0)
 
 
 def _index(idx, device) -> torch.Tensor:
@@ -414,3 +428,101 @@ class ExemplarClustering(SubmodularFunction):
 
     def value_from_mincache(self, mincache: torch.Tensor) -> float:
         return self.L0 - float(torch.mean(mincache))
+
+
+class FacilityLocation(SubmodularFunction):
+    """Facility location f(S) = n⁻¹ Σ_i max_{s∈S} s(v_i, s) — the exact
+    max-cache dual of the exemplar min cache: seed 0, fold = maximum, gains
+    relu(s_ic − c_i). Monotone submodular; scores through the shared CUDA
+    kernel template with ``fold="max"``."""
+
+    spec = FnSpec(name="facility_location")
+
+
+class GraphCut(SubmodularFunction):
+    """Graph cut f(S) = n⁻¹ Σ_i Σ_{j∈S} s_ij − (λ/n) Σ_{j,j'∈S} s_jj'.
+
+    The cache vec carries per-element coverage Σ_{j∈S} s_ij (additive fold);
+    the scalar aux carries the pairwise penalty. ``lam`` must lie in
+    (0, 0.5]: with s ≥ 0 and s(x,x) = 1, λ ≤ 0.5 keeps every marginal gain
+    of a non-member non-negative (monotone), which the greedy family's
+    guarantees assume. Like the reference, gains of indices already in S
+    are not zeroed (the engine masks members before its argmax).
+    """
+
+    def __init__(self, V, cfg: EvalConfig = EvalConfig(), e0=None,
+                 lam: float = 0.5, device=None):
+        if not 0.0 < lam <= 0.5:
+            raise ValueError(
+                f"graph_cut lam must lie in (0, 0.5] (monotonicity holds "
+                f"for λ ≤ 0.5 with s(x,x)=1), got {lam}")
+        self.spec = FnSpec(name="graph_cut", lam=float(lam))
+        super().__init__(V, cfg, e0, device)
+
+
+class SaturatedCoverage(SubmodularFunction):
+    """Saturated coverage f(S) = n⁻¹ Σ_i min(Σ_{j∈S} s_ij, cap_i) with
+    cap_i = sat · Σ_j s_ij. Monotone submodular; its capped-min gain is not
+    an affine-relu of the distance, so it scores in torch on every backend
+    (the zoo's member without a kernel form)."""
+
+    def __init__(self, V, cfg: EvalConfig = EvalConfig(), e0=None,
+                 sat: float = 0.25, device=None):
+        if not 0.0 < sat <= 1.0:
+            raise ValueError(
+                f"saturated_coverage sat must lie in (0, 1], got {sat}")
+        self.spec = FnSpec(name="saturated_coverage", sat=float(sat))
+        super().__init__(V, cfg, e0, device)
+
+    @property
+    def row_aux(self) -> torch.Tensor:
+        if self._row_aux is None:
+            self._row_aux = _saturation_caps(
+                self.V, self.spec.sat, self.cfg.distance,
+                self.cfg.resolved_policy(), block=min(1024, max(8, self.n)))
+        return self._row_aux
+
+
+class FeatureBased(SubmodularFunction):
+    """Feature-based f(S) = d⁻¹ Σ_t √(Σ_{s∈S} |v_s|_t): a concave-over-
+    modular function whose cache is the (d,)-shaped per-feature mass — NOT
+    an n-sized per-element cache, so it runs on the host plans only (the
+    device plans raise)."""
+
+    spec = FnSpec(name="feature_based")
+
+    def __init__(self, V, cfg: EvalConfig = EvalConfig(), e0=None,
+                 device=None):
+        super().__init__(V, cfg, e0, device)
+        self.F = torch.abs(self.V).to(torch.float32)
+
+    def init_cache(self):
+        return (torch.zeros((self.dim,), dtype=torch.float32,
+                            device=self.device),
+                torch.zeros((), dtype=torch.float32, device=self.device))
+
+    def gains_from_cache(self, cache, idx) -> torch.Tensor:
+        acc, _ = cache
+        idx = _index(idx, self.device)
+        return torch.mean(torch.sqrt(acc[None, :] + self.F[idx])
+                          - torch.sqrt(acc)[None, :], dim=1)
+
+    def fold_winner(self, cache, j):
+        acc, aux = cache
+        return (acc + self.F[int(j)], aux)
+
+    def value_from_cache(self, cache) -> float:
+        acc, _ = cache
+        return float(torch.mean(torch.sqrt(acc)))
+
+
+#: The registered function zoo: name → constructor ``F(V, cfg=..., e0=...,
+#: device=...)`` (per-function parameters default as in the reference;
+#: pass ``lam`` / ``sat`` to set them).
+FUNCTIONS = {
+    "exemplar": ExemplarClustering,
+    "facility_location": FacilityLocation,
+    "graph_cut": GraphCut,
+    "saturated_coverage": SaturatedCoverage,
+    "feature_based": FeatureBased,
+}

@@ -13,10 +13,22 @@
 //     input (the Pallas kernel's "idempotent" write from every m tile is not
 //     safe across parallel blocks sharing one buffer). The gate is read from
 //     device memory, so the engine's round loop never syncs with the host.
+//   * gain_eval_batched / gain_update_eval_batched (`_gain_kernel_batched`,
+//     `_gain_update_kernel_batched`): the same two functions for B
+//     independent requests in one launch. The TPU grid (B, m_tiles,
+//     n_tiles) becomes blockIdx.y = request, blockIdx.x = candidate tile;
+//     each block moves every operand to its request's slice (offsets in 64
+//     bits: b*n*d passes 2^31 at B = 64, n = 50 000, d = 1 024) and then runs
+//     the unbatched body unchanged, so a request's gains and cache are bit
+//     for bit those of its own unbatched launch. Each request reads its own
+//     winner and its own w_valid, and only its candidate tile 0 writes its
+//     folded cache. The offsets are a template switch (BATCHED), so the
+//     unbatched kernels compile as they did without a batch axis.
 //
 // What bounds it: 2*n*m*d FMA operations against (n + m)*d inputs —
 // compute-bound (a dense round at the paper's n = m = 50 000, d = 100 is
-// 5e11 FLOP), on this SIMT path by the fp32 FMA rate. Each block keeps its
+// 5e11 FLOP; a batched round is B such products, 8.6e11 FLOP at B = 64,
+// n = m = 8 192), on this SIMT path by the fp32 FMA rate. Each block keeps its
 // 32 candidate vectors staged in shared memory for its whole life, streams
 // V through a 64 x 32 staged chunk, and holds a 4 x 2 register tile; the
 // (n, m) distance matrix never exists. Rows past n are masked in place of
@@ -39,7 +51,7 @@ __device__ __forceinline__ float affine(float alpha, float beta, __half d2) {
   return __half2float(__hadd(__float2half_rn(alpha), __hmul(__float2half_rn(beta), d2)));
 }
 
-template <typename TIn, int P, bool UPDATE>
+template <typename TIn, int P, bool UPDATE, bool BATCHED>
 __global__ void __launch_bounds__(NT)
 gain_kernel(const TIn* __restrict__ V, const TIn* __restrict__ C, const float* __restrict__ cache,
             const TIn* __restrict__ w, const float* __restrict__ w_valid,
@@ -47,6 +59,18 @@ gain_kernel(const TIn* __restrict__ V, const TIn* __restrict__ C, const float* _
             float n_total, float gamma, int fold_max, float alpha, float beta) {
   using St = typename Pol<P>::S;
   using A = typename Pol<P>::A;
+  if (BATCHED) {  // request blockIdx.y of a (m tiles, B) grid
+    const long long b = blockIdx.y;
+    V += b * n * d;
+    C += b * m * d;
+    cache += b * n;
+    gains += b * m;
+    if (UPDATE) {
+      w += b * d;
+      w_valid += b;
+      new_cache += b * n;
+    }
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<St, A> sm(smem_raw, UPDATE ? 2 : 1, d);
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
@@ -147,33 +171,34 @@ gain_kernel(const TIn* __restrict__ V, const TIn* __restrict__ C, const float* _
   }
 }
 
-template <typename TIn, int P, bool UPDATE>
+template <typename TIn, int P, bool UPDATE, bool BATCHED>
 static int launch(const void* V, const void* C, const float* cache, const void* w,
-                  const float* w_valid, float* gains, float* new_cache, int n, int m, int d,
-                  float n_total, float gamma, int fold_max, float alpha, float beta,
+                  const float* w_valid, float* gains, float* new_cache, int B, int n, int m,
+                  int d, float n_total, float gamma, int fold_max, float alpha, float beta,
                   cudaStream_t stream) {
   const int smem = smem_bytes<P>(UPDATE ? 2 : 1, d);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidConfiguration;
-  auto kern = gain_kernel<TIn, P, UPDATE>;
+  if (smem > SMEM_LIMIT || B < 1 || B > 65535) return (int)cudaErrorInvalidConfiguration;
+  auto kern = gain_kernel<TIn, P, UPDATE, BATCHED>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (m + BC - 1) / BC;
+  // at m = 0 the fused kernel still runs candidate tile 0, which folds
+  const dim3 grid(m > 0 ? (m + BC - 1) / BC : 1, B);
   kern<<<grid, NT, smem, stream>>>(static_cast<const TIn*>(V), static_cast<const TIn*>(C), cache,
                                    static_cast<const TIn*>(w), w_valid, gains, new_cache, n, m, d,
                                    n_total, gamma, fold_max, alpha, beta);
   return (int)cudaGetLastError();
 }
 
-template <bool UPDATE>
+template <bool UPDATE, bool BATCHED>
 static int dispatch(const void* V, const void* C, const float* cache, const void* w,
-                    const float* w_valid, float* gains, float* new_cache, int n, int m, int d,
-                    float n_total, float gamma, int fold_max, float alpha, float beta, int policy,
-                    int in_dtype, void* stream) {
+                    const float* w_valid, float* gains, float* new_cache, int B, int n, int m,
+                    int d, float n_total, float gamma, int fold_max, float alpha, float beta,
+                    int policy, int in_dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_CASE(POL, IN, T)                                                               \
   if (policy == POL && in_dtype == IN)                                                       \
-    return launch<T, POL, UPDATE>(V, C, cache, w, w_valid, gains, new_cache, n, m, d, n_total, \
-                                  gamma, fold_max, alpha, beta, st);
+    return launch<T, POL, UPDATE, BATCHED>(V, C, cache, w, w_valid, gains, new_cache, B, n, m, \
+                                           d, n_total, gamma, fold_max, alpha, beta, st);
   REPRO_CASE(0, IN_F32, float)
   REPRO_CASE(1, IN_F32, float)
   REPRO_CASE(1, IN_BF16, __nv_bfloat16)
@@ -188,8 +213,8 @@ static int dispatch(const void* V, const void* C, const float* cache, const void
 extern "C" int repro_gain_eval(const void* V, const void* C, const float* cache, float* gains,
                                int n, int m, int d, float n_total, float gamma, int fold_max,
                                float alpha, float beta, int policy, int in_dtype, void* stream) {
-  return dispatch<false>(V, C, cache, nullptr, nullptr, gains, nullptr, n, m, d, n_total, gamma,
-                         fold_max, alpha, beta, policy, in_dtype, stream);
+  return dispatch<false, false>(V, C, cache, nullptr, nullptr, gains, nullptr, 1, n, m, d,
+                                n_total, gamma, fold_max, alpha, beta, policy, in_dtype, stream);
 }
 
 extern "C" int repro_gain_update_eval(const void* V, const void* C, const float* cache,
@@ -197,6 +222,26 @@ extern "C" int repro_gain_update_eval(const void* V, const void* C, const float*
                                       float* new_cache, int n, int m, int d, float n_total,
                                       float gamma, int fold_max, float alpha, float beta,
                                       int policy, int in_dtype, void* stream) {
-  return dispatch<true>(V, C, cache, w, w_valid, gains, new_cache, n, m, d, n_total, gamma,
-                        fold_max, alpha, beta, policy, in_dtype, stream);
+  return dispatch<true, false>(V, C, cache, w, w_valid, gains, new_cache, 1, n, m, d, n_total,
+                               gamma, fold_max, alpha, beta, policy, in_dtype, stream);
+}
+
+// V (B, n, d), C (B, m, d), cache (B, n), gains (B, m), all contiguous.
+extern "C" int repro_gain_eval_batched(const void* V, const void* C, const float* cache,
+                                       float* gains, int B, int n, int m, int d, float n_total,
+                                       float gamma, int fold_max, float alpha, float beta,
+                                       int policy, int in_dtype, void* stream) {
+  return dispatch<false, true>(V, C, cache, nullptr, nullptr, gains, nullptr, B, n, m, d,
+                               n_total, gamma, fold_max, alpha, beta, policy, in_dtype, stream);
+}
+
+// + w (B, d), w_valid (B,), new_cache (B, n) distinct from cache.
+extern "C" int repro_gain_update_eval_batched(const void* V, const void* C, const float* cache,
+                                              const void* w, const float* w_valid, float* gains,
+                                              float* new_cache, int B, int n, int m, int d,
+                                              float n_total, float gamma, int fold_max,
+                                              float alpha, float beta, int policy,
+                                              int in_dtype, void* stream) {
+  return dispatch<true, true>(V, C, cache, w, w_valid, gains, new_cache, B, n, m, d, n_total,
+                              gamma, fold_max, alpha, beta, policy, in_dtype, stream);
 }

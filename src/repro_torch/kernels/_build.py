@@ -56,6 +56,11 @@ SIGNATURES = {
                             _I, _I, _P],
         "repro_gain_update_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                    _F, _I, _F, _F, _I, _I, _P],
+        "repro_gain_eval_batched": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                    _I, _F, _F, _I, _I, _P],
+        "repro_gain_update_eval_batched": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                           _I, _I, _F, _F, _I, _F, _F, _I, _I,
+                                           _P],
     },
 }
 

@@ -20,6 +20,14 @@ and an in-tile affine of the distance:
 gated by a device-resident ``w_valid`` so the engine's round loop never waits
 on the host, writes the folded cache into a buffer distinct from its input,
 and scores the candidates against it.
+
+:func:`gain_eval_batched` and :func:`gain_update_eval_batched` replace the
+grid-over-B Pallas kernels (``_gain_kernel_batched``,
+``_gain_update_kernel_batched``): B independent requests in one launch of
+the same kernel body, one request per ``blockIdx.y``, each with its own
+winner and ``w_valid`` gate. A request's outputs are bit for bit those of
+its own unbatched launch (the multi-tenant engine's batched == unbatched
+contract rests on it).
 """
 from __future__ import annotations
 
@@ -81,20 +89,59 @@ def gain_update_eval_plain(V, C, cache, winner, w_valid, *, n_total: int,
     return gains, new_cache
 
 
-def _check_gain_operands(V, C, cache, policy, fold, affine):
+def gain_eval_batched_plain(V, C, cache, *, n_total: int,
+                            policy: PrecisionPolicy,
+                            rbf_gamma: Optional[float] = None,
+                            fold: str = "min",
+                            affine: Optional[tuple] = None) -> torch.Tensor:
+    """Plain version of :func:`gain_eval_batched` — (B, m) float32: each
+    request's row is its own :func:`gain_eval_plain` call."""
+    kw = dict(n_total=n_total, policy=policy, rbf_gamma=rbf_gamma, fold=fold,
+              affine=affine)
+    out = torch.empty(C.shape[:2], dtype=torch.float32, device=V.device)
+    for b in range(V.shape[0]):
+        out[b] = gain_eval_plain(V[b], C[b], cache[b], **kw)
+    return out
+
+
+def gain_update_eval_batched_plain(V, C, cache, winner, w_valid, *,
+                                   n_total: int, policy: PrecisionPolicy,
+                                   rbf_gamma: Optional[float] = None,
+                                   fold: str = "min",
+                                   affine: Optional[tuple] = None):
+    """Plain version of :func:`gain_update_eval_batched` — (gains (B, m),
+    new_cache (B, n)): each request's rows are its own
+    :func:`gain_update_eval_plain` call with its own winner and gate."""
+    kw = dict(n_total=n_total, policy=policy, rbf_gamma=rbf_gamma, fold=fold,
+              affine=affine)
+    gains = torch.empty(C.shape[:2], dtype=torch.float32, device=V.device)
+    new_cache = torch.empty_like(cache, dtype=torch.float32)
+    for b in range(V.shape[0]):
+        gains[b], new_cache[b] = gain_update_eval_plain(
+            V[b], C[b], cache[b], winner[b], w_valid[b], **kw)
+    return gains, new_cache
+
+
+def _check_gain_operands(V, C, cache, policy, fold, affine, batched=False):
     dev = V.device
     for name, t in (("C", C), ("cache", cache)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, V on {dev}")
-    if V.ndim != 2 or C.ndim != 2 or C.shape[1] != V.shape[1]:
-        raise ValueError(f"V (n, d) and C (m, d) expected, got {tuple(V.shape)}"
-                         f" and {tuple(C.shape)}")
+    lead = V.shape[:1] if batched else ()
+    nd = 3 if batched else 2
+    if V.ndim != nd or C.ndim != nd or C.shape[-1] != V.shape[-1] \
+            or C.shape[:-2] != lead:
+        want = "V (B, n, d) and C (B, m, d)" if batched \
+            else "V (n, d) and C (m, d)"
+        raise ValueError(f"{want} expected, got {tuple(V.shape)} and "
+                         f"{tuple(C.shape)}")
     if not (V.is_contiguous() and C.is_contiguous() and cache.is_contiguous()):
         raise ValueError("V, C and cache must be contiguous")
     if C.dtype != V.dtype:
         raise ValueError(f"C dtype {C.dtype} differs from V dtype {V.dtype}")
-    if cache.dtype != torch.float32 or cache.shape != (V.shape[0],):
-        raise ValueError("cache must be an (n,) float32 tensor")
+    if cache.dtype != torch.float32 or cache.shape != V.shape[:-1]:
+        raise ValueError(f"cache must be a {tuple(V.shape[:-1])} float32 "
+                         f"tensor")
     if fold not in ("min", "max"):
         raise ValueError(f"fold must be 'min' or 'max', got {fold!r}")
     if fold == "max" and affine is None:
@@ -159,21 +206,9 @@ def gain_update_eval(
             return gains, new_cache
         return gains, cache_out.copy_(new_cache)
     code, fmax, a, b = _check_gain_operands(V, C, cache, policy, fold, affine)
+    cache_out = _check_winner(V, winner, w_valid, cache, cache_out)
     n, d = V.shape
     m = C.shape[0]
-    if winner.shape != (d,) or winner.dtype != V.dtype or winner.device != V.device \
-            or not winner.is_contiguous():
-        raise ValueError("winner must be a contiguous (d,) tensor of V's dtype "
-                         "and device")
-    if w_valid.numel() != 1 or w_valid.dtype != torch.float32 \
-            or w_valid.device != V.device:
-        raise ValueError("w_valid must be one float32 on V's device")
-    if cache_out is None:
-        cache_out = torch.empty_like(cache)
-    elif cache_out.data_ptr() == cache.data_ptr() or cache_out.shape != cache.shape \
-            or cache_out.dtype != torch.float32 or not cache_out.is_contiguous():
-        raise ValueError("cache_out must be a distinct contiguous (n,) float32 "
-                         "buffer")
     gains = torch.empty(m, dtype=torch.float32, device=V.device)
     _build.launch(
         "gain_update_eval", "marginal_gain", "repro_gain_update_eval",
@@ -182,4 +217,101 @@ def gain_update_eval(
         float(n_total), -1.0 if rbf_gamma is None else float(rbf_gamma),
         fmax, a, b, _build.POLICY_CODES[policy.name], code,
         _build.stream_ptr(V.device))
+    return gains, cache_out
+
+
+def _check_winner(V, winner, w_valid, cache, cache_out):
+    """Winner rows (…, d), gates (…,) and the new-cache buffer of a fused
+    launch, with … = () unbatched and (B,) batched."""
+    lead, d = V.shape[:-2], V.shape[-1]
+    if winner.shape != (*lead, d) or winner.dtype != V.dtype \
+            or winner.device != V.device or not winner.is_contiguous():
+        raise ValueError(f"winner must be a contiguous {(*lead, d)} tensor of "
+                         f"V's dtype and device")
+    if w_valid.numel() != max(1, lead.numel()) \
+            or w_valid.dtype != torch.float32 or w_valid.device != V.device \
+            or not w_valid.is_contiguous():
+        raise ValueError(f"w_valid must be {lead.numel() or 1} contiguous "
+                         f"float32 on V's device")
+    if cache_out is None:
+        return torch.empty_like(cache)
+    if cache_out.data_ptr() == cache.data_ptr() or cache_out.shape != cache.shape \
+            or cache_out.dtype != torch.float32 or not cache_out.is_contiguous():
+        raise ValueError("cache_out must be a distinct contiguous float32 "
+                         "buffer of the cache's shape")
+    return cache_out
+
+
+def gain_eval_batched(
+    V: torch.Tensor,          # (B, n, d) float32 or the policy's compute dtype
+    C: torch.Tensor,          # (B, m, d) V's dtype
+    cache: torch.Tensor,      # (B, n) float32
+    *,
+    n_total: int,
+    policy: PrecisionPolicy,
+    rbf_gamma: Optional[float] = None,
+    fold: str = "min",
+    affine: Optional[tuple] = None,
+) -> torch.Tensor:
+    """:func:`gain_eval` for B independent requests in one launch — (B, m)."""
+    if not V.is_cuda:
+        return gain_eval_batched_plain(V, C, cache, n_total=n_total,
+                                       policy=policy, rbf_gamma=rbf_gamma,
+                                       fold=fold, affine=affine)
+    code, fmax, a, b = _check_gain_operands(V, C, cache, policy, fold, affine,
+                                            batched=True)
+    B, n, d = V.shape
+    m = C.shape[1]
+    gains = torch.empty((B, m), dtype=torch.float32, device=V.device)
+    if m == 0 or B == 0:
+        return gains
+    _build.launch(
+        "gain_eval_batched", "marginal_gain", "repro_gain_eval_batched",
+        V.data_ptr(), C.data_ptr(), cache.data_ptr(), gains.data_ptr(), B, n,
+        m, d, float(n_total), -1.0 if rbf_gamma is None else float(rbf_gamma),
+        fmax, a, b, _build.POLICY_CODES[policy.name], code,
+        _build.stream_ptr(V.device))
+    return gains
+
+
+def gain_update_eval_batched(
+    V: torch.Tensor,          # (B, n, d)
+    C: torch.Tensor,          # (B, m, d)
+    cache: torch.Tensor,      # (B, n) float32 — caches *before* the winners
+    winner: torch.Tensor,     # (B, d) each request's previous winner
+    w_valid: torch.Tensor,    # (B,) float32 on the device — 0 disables a fold
+    *,
+    n_total: int,
+    policy: PrecisionPolicy,
+    rbf_gamma: Optional[float] = None,
+    fold: str = "min",
+    affine: Optional[tuple] = None,
+    cache_out: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gain_update_eval` for B independent requests in one launch.
+    Returns ``(gains (B, m), new_cache (B, n))``; the new caches go to
+    ``cache_out`` when given (it must not be ``cache``)."""
+    if not V.is_cuda:
+        gains, new_cache = gain_update_eval_batched_plain(
+            V, C, cache, winner, w_valid, n_total=n_total, policy=policy,
+            rbf_gamma=rbf_gamma, fold=fold, affine=affine)
+        if cache_out is None:
+            return gains, new_cache
+        return gains, cache_out.copy_(new_cache)
+    code, fmax, a, b = _check_gain_operands(V, C, cache, policy, fold, affine,
+                                            batched=True)
+    cache_out = _check_winner(V, winner, w_valid, cache, cache_out)
+    B, n, d = V.shape
+    m = C.shape[1]
+    gains = torch.empty((B, m), dtype=torch.float32, device=V.device)
+    if B == 0:
+        return gains, cache_out
+    # m = 0 still launches one candidate tile per request: it folds
+    _build.launch(
+        "gain_update_eval_batched", "marginal_gain",
+        "repro_gain_update_eval_batched", V.data_ptr(), C.data_ptr(),
+        cache.data_ptr(), winner.data_ptr(), w_valid.data_ptr(),
+        gains.data_ptr(), cache_out.data_ptr(), B, n, m, d, float(n_total),
+        -1.0 if rbf_gamma is None else float(rbf_gamma), fmax, a, b,
+        _build.POLICY_CODES[policy.name], code, _build.stream_ptr(V.device))
     return gains, cache_out

@@ -1,5 +1,6 @@
-"""Public wrappers around the CUDA kernels (the unbatched half of the
-reference's ``kernels/ops.py``).
+"""Public wrappers around the CUDA kernels (the exemplar-eval and gain
+halves of the reference's ``kernels/ops.py``; the sieve half waits for the
+streaming slice).
 
 Handles what the CUDA host code in the paper handles:
 
@@ -168,11 +169,17 @@ def marginal_gain(
     template: the default ``"min"`` scores the exemplar min-distance cache;
     ``("max", (α, β))`` scores relu((α + β·d) − cache) against a
     max-similarity cache.
+
+    Batched dispatch: ``V (B, n, d)``, ``C (B, m, d)`` and ``mincache
+    (B, n)`` route to the grid-over-B kernel — one launch scores all B
+    requests, each bit for bit as its own unbatched call — and return
+    (B, m).
     """
     V, C = _harmonize(policy, V, C)
-    return _mg.gain_eval(
+    gain = _mg.gain_eval_batched if V.ndim == 3 else _mg.gain_eval
+    return gain(
         V.contiguous(), C.contiguous(), mincache.to(torch.float32).contiguous(),
-        n_total=n_total if n_total is not None else V.shape[0], policy=policy,
+        n_total=n_total if n_total is not None else V.shape[-2], policy=policy,
         rbf_gamma=rbf_gamma, fold=fold,
         affine=None if score_affine is None else tuple(score_affine))
 
@@ -200,14 +207,22 @@ def fused_gain_update(
     round-0 step where no previous winner exists. ``cache_out`` receives the
     new cache (a buffer distinct from ``mincache``, so a caller can
     ping-pong two buffers instead of allocating one per round).
+
+    Batched dispatch: ``V (B, n, d)``, ``C (B, m, d)``, ``mincache (B, n)``,
+    ``winner (B, d)`` and ``w_valid (B,)`` (a device tensor, default all
+    ones) fold and score all B requests in one launch; a request's
+    ``w_valid`` lane is also its ragged-k gate.
     """
     V, C, winner = _harmonize(policy, V, C, winner)
+    batched = V.ndim == 3
     if w_valid is None:
-        w_valid = torch.ones((), dtype=torch.float32, device=V.device)
-    return _mg.gain_update_eval(
+        w_valid = torch.ones(V.shape[:1] if batched else (),
+                             dtype=torch.float32, device=V.device)
+    update = _mg.gain_update_eval_batched if batched else _mg.gain_update_eval
+    return update(
         V.contiguous(), C.contiguous(), mincache.to(torch.float32).contiguous(),
-        winner.contiguous(), w_valid.to(torch.float32),
-        n_total=n_total if n_total is not None else V.shape[0], policy=policy,
+        winner.contiguous(), w_valid.to(torch.float32).contiguous(),
+        n_total=n_total if n_total is not None else V.shape[-2], policy=policy,
         rbf_gamma=rbf_gamma, fold=fold,
         affine=None if score_affine is None else tuple(score_affine),
         cache_out=cache_out)

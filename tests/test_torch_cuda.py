@@ -115,3 +115,73 @@ def test_device_plan_launches_the_fused_kernel_once_per_round(dev):
     assert ops.LAUNCHES["gain_eval"] == 5
     assert dev_r.indices == host_r.indices
     assert dev_r.evaluations == host_r.evaluations
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("policy", sorted(BANDS))
+def test_batched_kernels_equal_unbatched_per_request(dev, policy, fold):
+    """Each request of a batched launch is bit for bit its own unbatched
+    launch (gains and folded cache), at a ragged shape, with a w_valid that
+    mixes 0 and 1; and the batched kernels agree with their plain
+    versions."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    B, n, m, d = 3, 1031, 101, 45
+    unit = dict(sigma=(2 * d) ** -0.5, shift=0.1) if fold == "max" else {}
+    parts = [_problem(dev, n=n, d=d, seed=10 + b, **unit) for b in range(B)]
+    V = torch.stack([p[0] for p in parts])
+    cache = torch.stack([p[3] for p in parts])
+    if fold == "max":
+        cache = torch.rand_like(cache) * 0.8
+    C, w = V[:, :m].contiguous(), V[:, 7].contiguous()
+    wv = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    kw = dict(n_total=n, policy=resolve(policy), fold=fold,
+              affine=(SIM_ALPHA, SIM_BETA) if fold == "max" else None)
+    g = mg.gain_eval_batched(V, C, cache, **kw)
+    gu, nc = mg.gain_update_eval_batched(V, C, cache, w, wv, **kw)
+    for b in range(B):
+        assert torch.equal(g[b], mg.gain_eval(V[b], C[b], cache[b], **kw))
+        g1, nc1 = mg.gain_update_eval(V[b], C[b], cache[b], w[b], wv[b], **kw)
+        assert torch.equal(gu[b], g1) and torch.equal(nc[b], nc1)
+    ns = max(p[4] for p in parts)
+    _band(g, mg.gain_eval_batched_plain(V, C, cache, **kw), BANDS[policy], ns)
+    gp, ncp = mg.gain_update_eval_batched_plain(V, C, cache, w, wv, **kw)
+    _band(gu, gp, BANDS[policy], ns)
+    _band(nc, ncp, BANDS[policy], ns)
+
+
+@pytest.mark.cuda
+def test_selection_service_round_trip_on_the_card(dev):
+    """Tenants served on the card get their unbatched results to the bit
+    (ragged k included), through the batched kernels (one fused launch per
+    round per bucket)."""
+    import asyncio
+
+    from repro_torch.core import (EvalConfig, ExemplarClustering,
+                                  SelectionService, greedy, lazy_greedy)
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import ops
+
+    Xs = [blobs(1500, 24, centers=6, seed=t)[0] for t in range(6)]
+    cfg = EvalConfig(backend="cuda")
+
+    async def main():
+        async with SelectionService(cfg, max_batch=8, linger_s=0.01) as svc:
+            # k 3 and 4 share a 4-round bucket: k = 3 is ragged
+            dense = await asyncio.gather(*[svc.submit(X, k=3 + t % 2)
+                                           for t, X in enumerate(Xs)])
+            lazy = await asyncio.gather(*[svc.submit(X, k=3, kind="lazy")
+                                          for X in Xs[:3]])
+            return dense, lazy, dict(svc.stats)
+
+    ops.LAUNCHES.clear()
+    dense, lazy, stats = asyncio.run(main())
+    assert ops.LAUNCHES["gain_update_eval_batched"] == 4
+    assert ops.LAUNCHES["gain_eval_batched"] > 0
+    assert stats["dispatches"] == 2
+    for t, (X, r) in enumerate(zip(Xs, dense)):
+        assert r == greedy(ExemplarClustering(X, cfg), 3 + t % 2,
+                           mode="device")
+    for X, r in zip(Xs, lazy):
+        assert r == lazy_greedy(ExemplarClustering(X, cfg), 3, mode="device")
