@@ -16,7 +16,9 @@ Phases (any failure exits non-zero before the result lines):
    each comparison must also catch a planted 1 % error. The batched gain
    kernels at B = 1, 3 and 8 with a ``w_valid`` that mixes 0 and 1, and
    each request of a batched launch bit for bit equal to its own unbatched
-   launch.
+   launch. The sieve kernels at r ∈ {1, 35, 65} rows and ragged n up to
+   50 000, both templates, and the batched one at P ∈ {1, 3, 16}, each
+   partition bit for bit its unbatched launch.
 3. The main path at the paper's size (N=50 000, l=5 000, k=10, dim=100):
    multiset evaluation in fused/flat, fused/loop and two_pass against the
    ``torch`` backend; greedy, stochastic and lazy greedy on the device plan
@@ -29,13 +31,31 @@ Phases (any failure exits non-zero before the result lines):
    tenants of (50 000, 100), k = 10), every served result identical to the
    tenant's unbatched call; launches, and the shapes each batched kernel
    was launched at, are counted over this phase only.
+   Then streaming (phase 3c) at the paper's size: ground set
+   ``blobs(50 000, 100, centers=16)``, k = 10, ε = 0.1, backend ``cuda``.
+   ``sieve_streaming(mode="device")`` over the whole shuffled stream;
+   host mirror against device plan for sieve, pp and salsa on its first
+   8 192 elements (identical members and evaluations, values within
+   1e-6); the ``cuda`` backend against ``torch`` on that prefix (reported,
+   not gated); ``StreamIngestionService`` fed the prefix, equal to the
+   optimizer; ``MultiStreamIngestionService`` with 16 partitions of 2 048
+   noisy vectors, each partition of its batched engine bit for bit a
+   standalone engine fed the same sub-stream, and a certified merge.
+   Launches of the two sieve kernels are counted over this phase only.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
-   events beside its plain version, the cuBLAS Gram product alone (a
-   yardstick the port never calls), and the least time the card could
-   take (its bound). The batched kernels are timed at B = 64,
-   n = m = 8 192, d = 100.
+   events (the µs-scale sieve kernels by their device time from the
+   profiler, the event times beside) beside its plain version, a yardstick the port never calls (the
+   cuBLAS Gram product alone; for the sieve kernels ``torch.sum`` over
+   the same table), and the least time the card could take (its bound).
+   The batched gain kernels are timed at B = 64, n = m = 8 192, d = 100;
+   the sieve kernels at the streaming phase's tables: (35, 50 000),
+   (65, 50 000) and (16, 35, 50 000).
+
+5. Steady-state wall times of the main path's calls, and profiles (device
+   busy time by kernel against wall time) of greedy in both plans and of a
+   2 048-element window of the device sieve.
 
 The last three lines are the card's name and power limit, a JSON object
 listing each kernel, and ``{"ok": true, "device": ...}``.
@@ -85,11 +105,19 @@ KERNELS = {
                           "src/repro/kernels/marginal_gain.py:249"),
     "gain_update_eval_batched": ("src/repro_torch/csrc/marginal_gain.cu",
                                  "src/repro/kernels/marginal_gain.py:326"),
+    "sieve_gain_eval": ("src/repro_torch/csrc/sieve_gain.cu",
+                        "src/repro/kernels/marginal_gain.py:395"),
+    "sieve_gain_eval_batched": ("src/repro_torch/csrc/sieve_gain.cu",
+                                "src/repro/kernels/marginal_gain.py:451"),
 }
 #: Kernels of the main path (phase 3); the batched two run on the serving
-#: path (phase 3b).
+#: path (phase 3b), the sieve two on the streaming path (phase 3c).
 MAIN_KERNELS = ("fused_eval", "two_pass_eval", "gain_eval", "gain_update_eval")
 SERVING_KERNELS = ("gain_eval_batched", "gain_update_eval_batched")
+STREAM_KERNELS = ("sieve_gain_eval", "sieve_gain_eval_batched")
+#: The yardstick each kernel is timed beside (``library_ms``).
+LIBRARY = {name: "cuBLAS Gram" for name in MAIN_KERNELS + SERVING_KERNELS}
+LIBRARY.update({name: "torch.sum yardstick" for name in STREAM_KERNELS})
 
 #: Dense peaks per card (NVIDIA data sheets): fp32 outside the tensor cores,
 #: bf16/fp16 on the tensor cores, device memory bandwidth.
@@ -387,12 +415,76 @@ def phase_kernels_batched(check: Checker) -> int:
     return identical
 
 
+def sieve_operands(lead, r, n, fold, seed):
+    """A sieve table and distance rows (float32, on the card) on which the
+    relu clips some terms and not others; column 0 scores > 0 in every
+    row, so no case's gains are all zero."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.0, 2.0, size=(*lead, n))
+    if fold == "min":
+        T = d[..., None, :] + rng.uniform(-0.3, 1.0, size=(*lead, r, n))
+        T[..., 0] = d[..., None, 0] + 0.5
+    else:
+        T = rng.uniform(0.0, 0.8, size=(*lead, r, n))
+        d[..., 0], T[..., 0] = 0.5, 0.0    # α + β·0.5 − 0 = 0.75
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device="cuda").contiguous()
+    return t(T), t(d)
+
+
+def phase_kernels_sieve(check: Checker) -> int:
+    """The sieve kernels against their plain versions (fp32 operands, both
+    templates, ragged n), and each partition of a batched launch against
+    its own unbatched launch (bit for bit). Returns the number of
+    partitions compared bit for bit."""
+    import torch
+
+    from repro_torch.core.functions import SIM_ALPHA, SIM_BETA
+    from repro_torch.kernels import marginal_gain as mg
+
+    affine = {"min": None, "max": (SIM_ALPHA, SIM_BETA)}
+    for r in (1, 35, 65):
+        for n in (1, 257, 4099, 50_000):
+            for fold, aff in affine.items():
+                T, d = sieve_operands((), r, n, fold, seed=r * n)
+                kw = dict(n_total=n, fold=fold, affine=aff)
+                got = mg.sieve_gain_eval(T, d, **kw)
+                check("sieve_gain_eval", got,
+                      mg.sieve_gain_eval_plain(T, d, **kw), "fp32",
+                      f"r={r} n={n} {fold}")
+    identical = 0
+    for P in (1, 3, 16):
+        for n in (4099, 50_000):
+            for fold, aff in affine.items():
+                T, d = sieve_operands((P,), 35, n, fold, seed=P * n)
+                kw = dict(n_total=n, fold=fold, affine=aff)
+                tag = f"P={P} r=35 n={n} {fold}"
+                got = mg.sieve_gain_eval_batched(T, d, **kw)
+                check("sieve_gain_eval_batched", got,
+                      mg.sieve_gain_eval_batched_plain(T, d, **kw), "fp32",
+                      tag)
+                for p in range(P):
+                    one = mg.sieve_gain_eval(T[p], d[p], **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(one, got[p]):
+                        raise AssertionError(
+                            f"sieve_gain_eval_batched [{tag}]: partition {p} "
+                            f"differs from its unbatched launch")
+                    identical += 1
+    return identical
+
+
 def report_kernel_checks(check: Checker):
     log(f"    {check.cases} comparisons; per kernel and policy: max abs err, "
         f"largest err / band (case), smallest planted fault / band (case)")
     for name in KERNELS:
         for pol in POLICIES:
             key = (name, pol)
+            if key not in check.max_err:  # the sieve kernels are fp32 only
+                continue
             of_band, what = check.of_band[key]
             fault, fwhat = check.fault_over_band[key]
             log(f"      {name} {pol}: {check.max_err[key]:.3e}, {of_band:.3e} "
@@ -623,6 +715,181 @@ def phase_serving(T=64, N=8192, DIM=100, N_PAPER=50_000):
     return walls, V, torch.stack([f.V for f in fp]), launches, shapes
 
 
+def same_stream_result(what, got, ref, atol=1e-6):
+    """Two sieve runs on the same stream: identical members and
+    evaluations, values within ``atol``."""
+    if got.indices != ref.indices or got.evaluations != ref.evaluations \
+            or not abs(got.value - ref.value) <= atol:
+        raise AssertionError(
+            f"{what}: {got.indices} / {got.evaluations} / {got.value!r} != "
+            f"{ref.indices} / {ref.evaluations} / {ref.value!r}")
+
+
+def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
+                    PER=2048):
+    """Streaming at the paper's size (ground set ``blobs(N, DIM,
+    centers=16)``, k = K, ε = EPS, backend ``cuda``). Returns ``(walls,
+    launches per sub-phase)``; the caller reads ``ops.LAUNCHES`` over the
+    whole phase."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (EvalConfig, ExemplarClustering,
+                                  MultiStreamIngestionService,
+                                  StreamIngestionService, salsa,
+                                  sieve_streaming, sieve_streaming_pp)
+    from repro_torch.core.optimizers import _stream
+    from repro_torch.core.streaming import make_sieve_engine
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import ops
+
+    X, _ = blobs(N, DIM, centers=16, seed=0)
+    f = ExemplarClustering(X, EvalConfig(backend="cuda"))
+    walls, sub = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        sub[name] = {k: v - before.get(k, 0) for k, v in ops.LAUNCHES.items()
+                     if v != before.get(k, 0)}
+        return out
+
+    full = timed("sieve_streaming device, whole stream", lambda: sieve_streaming(
+        f, K, eps=EPS, seed=0, mode="device", block_size=64))
+    w = walls["sieve_streaming device, whole stream"]
+    if not (1 <= len(full.indices) <= K and np.isfinite(full.value)
+            and full.value > 0 and full.evaluations > 0):
+        raise AssertionError(f"sieve_streaming over the whole stream: {full}")
+    log(f"  sieve_streaming mode=device n={N} k={K} eps={EPS} over the whole "
+        f"{N}-element stream (block_size=64): members {full.indices}, "
+        f"value {full.value:.6f}, evaluations {full.evaluations}; wall "
+        f"{w:.3f} s, {N / w:.1f} elements/s, launches "
+        f"{json.dumps(sub['sieve_streaming device, whole stream'])}")
+
+    prefix = _stream(f, None, 0)[:PREFIX]
+    algs = {"sieve": sieve_streaming, "pp": sieve_streaming_pp, "salsa": salsa}
+    runs = {}
+    for name, alg in algs.items():
+        for mode in ("device", "host"):
+            runs[name, mode] = timed(f"{name} {mode}, prefix", lambda: alg(
+                f, K, eps=EPS, order=prefix, mode=mode, block_size=64))
+        same_stream_result(f"{name} host vs device", runs[name, "host"],
+                           runs[name, "device"])
+        dv, hs = (walls[f"{name} {m}, prefix"] for m in ("device", "host"))
+        log(f"  {name} on the first {PREFIX} elements: host mirror = device "
+            f"plan (members {runs[name, 'device'].indices}, evaluations "
+            f"{runs[name, 'device'].evaluations}, value diff "
+            f"{abs(runs[name, 'host'].value - runs[name, 'device'].value):.3e}"
+            f"); wall device {dv:.3f} s ({PREFIX / dv:.1f} elements/s), host "
+            f"{hs:.3f} s ({PREFIX / hs:.1f} elements/s)")
+
+    ft = ExemplarClustering(f.V, EvalConfig(backend="torch"))
+    for name, alg in algs.items():
+        tr = timed(f"{name} device torch backend, prefix", lambda: alg(
+            ft, K, eps=EPS, order=prefix, mode="device", block_size=64))
+        cu = runs[name, "device"]
+        log(f"  {name} backend cuda vs torch on the prefix (reported, not "
+            f"gated): members agree {cu.indices == tr.indices}, evaluations "
+            f"{cu.evaluations} vs {tr.evaluations}, value gap "
+            f"{cu.value - tr.value:.3e}; torch-backend wall "
+            f"{walls[f'{name} device torch backend, prefix']:.3f} s")
+
+    Xp = X[prefix]
+
+    async def ingest():
+        async with StreamIngestionService(f, k=K, eps=EPS, mode="device",
+                                          block_size=64) as svc:
+            await svc.offer_batch(Xp)
+            await svc.drain()
+            return await svc.snapshot()
+
+    snap = timed("StreamIngestionService, prefix", lambda: asyncio.run(ingest()))
+    ref = runs["sieve", "device"]
+    got = [int(prefix[i]) for i in snap.indices]
+    if got != ref.indices or snap.evaluations != ref.evaluations \
+            or not abs(snap.value - ref.value) <= 1e-6 \
+            or snap.n_ingested != PREFIX \
+            or not np.array_equal(snap.exemplars, Xp[snap.indices]):
+        raise AssertionError(f"StreamIngestionService {got} / "
+                             f"{snap.evaluations} / {snap.value!r} != "
+                             f"sieve_streaming {ref.indices} / "
+                             f"{ref.evaluations} / {ref.value!r}")
+    sw = walls["StreamIngestionService, prefix"]
+    log(f"  StreamIngestionService fed the prefix: snapshot = "
+        f"sieve_streaming(mode='device') on the same order (members, "
+        f"evaluations, value diff {abs(snap.value - ref.value):.3e}); wall "
+        f"{sw:.3f} s, {PREFIX / sw:.1f} elements/s")
+
+    # P partitions of PER noisy ground-set vectors, round robin
+    rng = np.random.default_rng(9)
+    base = X[rng.choice(N, size=P * PER)]
+    stream = (base + 0.03 * rng.normal(size=base.shape)).astype(np.float32)
+    masks = [[] for _ in range(P)]
+    svc = MultiStreamIngestionService(f, k=K, n_streams=P, eps=EPS,
+                                      block_size=32, max_pending=P * PER)
+    real_offer = svc._engine.offer
+
+    def recording(idxs, Xs):    # the per-partition accept masks, in order
+        out = real_offer(idxs, Xs)
+        for p in range(P):
+            masks[p].append(out[p])
+        return out
+
+    svc._engine.offer = recording
+
+    async def multi():
+        async with svc:
+            for j, x in enumerate(stream):
+                await svc.offer(x, stream=j % P)
+            await svc.drain()
+            return await svc.snapshot()
+
+    msnap = timed("MultiStreamIngestionService", lambda: asyncio.run(multi()))
+    mw = walls["MultiStreamIngestionService"]
+    if not (msnap.certified and msnap.n_ingested == P * PER):
+        raise AssertionError(f"multi-stream merge not certified: value "
+                             f"{msnap.value!r} < bound {msnap.bound!r}")
+    bests = svc._engine.best_all()
+    ids = np.arange(P * PER)
+    for p in range(P):
+        eng = make_sieve_engine(f, K, EPS, mode="device", block_size=32)
+        mask = eng.offer(ids[p::P], stream[p::P])
+        if not (np.array_equal(mask, np.concatenate(masks[p]))
+                and eng.best() == bests[p]
+                and eng.evaluations() == svc._engine.evaluations(p)):
+            raise AssertionError(
+                f"stream partition {p}: batched {bests[p]} / "
+                f"{svc._engine.evaluations(p)} != standalone {eng.best()} / "
+                f"{eng.evaluations()}")
+    log(f"  MultiStreamIngestionService P={P} x {PER} (block_size=32): every "
+        f"partition bit for bit its standalone DeviceSieveEngine (accept "
+        f"masks, members, values, evaluations); merge certified (value "
+        f"{msnap.value:.6f} >= bound {msnap.bound:.6f}); wall {mw:.3f} s, "
+        f"{P * PER / mw:.1f} elements/s")
+
+    # what computing each partition's distance rows at the standalone shape
+    # costs against one product over all P·B rows, and whether the one
+    # product would give the same bits here
+    Xb = torch.as_tensor(stream[:P * 32], device="cuda")
+    one = f.point_distances_block(Xb)
+    per = torch.cat([f.point_distances_block(Xb[p * 32:(p + 1) * 32])
+                     for p in range(P)])
+    one_ms = cuda_ms(lambda: f.point_distances_block(Xb), 20)
+    per_ms = cuda_ms(lambda: [f.point_distances_block(Xb[p * 32:(p + 1) * 32])
+                              for p in range(P)], 20)
+    log(f"    distance rows of one block row: {P} products of (32, {N}) "
+        f"{per_ms:.3f} ms against one ({P * 32}, {N}) product {one_ms:.3f} "
+        f"ms; same bits: {torch.equal(one, per)}")
+    log(f"    launches per sub-phase: {json.dumps(sub)}")
+    return walls
+
+
 def cuda_times(fn, reps: int, warmup: int = 2) -> list:
     """Per-call device times (ms) of ``fn`` by CUDA events, after warm-up."""
     import torch
@@ -642,6 +909,29 @@ def cuda_times(fn, reps: int, warmup: int = 2) -> list:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call (ms): the durations of the kernels ``fn``
+    launches, from the profiler, over ``reps`` calls after a warm-up. For
+    kernels of a few µs, CUDA events around one call also time the host's
+    launch of it, while the card waits."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total / 1e3 / reps
 
 
 def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
@@ -691,8 +981,8 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
     R = 7
     rows = {}
 
-    def kernel_ms(fn):
-        ts = cuda_times(fn, R)
+    def kernel_ms(fn, reps=R):
+        ts = cuda_times(fn, reps)
         q1, _, q3 = statistics.quantiles(ts, n=4)
         return dict(ms=statistics.median(ts), ms_q1=q1, ms_q3=q3)
 
@@ -830,6 +1120,45 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
         library_ms=bmm_ms,
         bound=bound(batched_flops + 2.0 * Bq * Nq * DIM,
                     batched_in + 4 * Bq * (DIM + 1) + 4 * 2 * Bq * Nq))
+    # the sieve kernels at the streaming phase's tables: the sieve table's
+    # 34 slots and salsa's 64, each with the seed row, and 16 partitions
+    # (µs-scale kernels: times are device times from the profiler, the
+    # CUDA-event times of single calls beside them)
+    def sieve_row(kernel, plain, table, flops, nbytes):
+        ev = kernel_ms(kernel, 50)
+        return dict(
+            ms=device_ms(kernel, 50), plain_ms=device_ms(plain, 50),
+            library_ms=device_ms(lambda: torch.sum(table, dim=-1), 50),
+            bound=bound(flops, nbytes), event_ms=ev["ms"],
+            event_ms_q1=ev["ms_q1"], event_ms_q3=ev["ms_q3"],
+            event_plain_ms=cuda_ms(plain, 50),
+            event_library_ms=cuda_ms(lambda: torch.sum(table, dim=-1), 50))
+
+    for r in (35, 65):
+        T, d = sieve_operands((), r, N, "min", seed=r)
+        kws = dict(n_total=N)
+        agree("sieve_gain_eval", mg.sieve_gain_eval(T, d, **kws),
+              mg.sieve_gain_eval_plain(T, d, **kws), f"({r}, {N})")
+        row = sieve_row(lambda: mg.sieve_gain_eval(T, d, **kws),
+                        lambda: mg.sieve_gain_eval_plain(T, d, **kws), T,
+                        3.0 * r * N, 4 * (r * N + N + r))
+        if r == 35:
+            rows["sieve_gain_eval"] = row
+        else:  # salsa's table, beside the sieve table's row
+            rows["sieve_gain_eval"].update({
+                f"r65_{k}": v[0] if k == "bound" else v
+                for k, v in row.items() if k in ("ms", "plain_ms",
+                                                 "library_ms", "bound",
+                                                 "event_ms")})
+    T, d = sieve_operands((16,), 35, N, "min", seed=16)
+    kws = dict(n_total=N)
+    agree("sieve_gain_eval_batched", mg.sieve_gain_eval_batched(T, d, **kws),
+          mg.sieve_gain_eval_batched_plain(T, d, **kws), f"(16, 35, {N})")
+    rows["sieve_gain_eval_batched"] = sieve_row(
+        lambda: mg.sieve_gain_eval_batched(T, d, **kws),
+        lambda: mg.sieve_gain_eval_batched_plain(T, d, **kws), T,
+        3.0 * 16 * 35 * N, 4 * (16 * 35 * N + 16 * N + 16 * 35))
+    del T, d
     for name, r in rows.items():
         r["main_rel_err"] = rel[name]
     return rows
@@ -837,13 +1166,17 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
 
 def phase_end_to_end() -> dict:
     """Steady-state wall times of the main path's user calls (median of 3
-    after a warm-up call), and a profile of one device greedy: device busy
-    time by kernel against the call's wall time."""
+    after a warm-up call), and profiles of greedy (both plans) and of a
+    2 048-element window of the device sieve: device busy time by kernel
+    against the call's wall time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (EvalConfig, ExemplarClustering,
-                                  PackedMultiset, greedy, lazy_greedy)
+                                  PackedMultiset, greedy, lazy_greedy,
+                                  sieve_streaming)
+    from repro_torch.core.optimizers import _stream
     from repro_torch.data.synthetic import blobs, uniform_problem
 
     N, L, K, DIM = 50_000, 5_000, 10, 100
@@ -874,22 +1207,31 @@ def phase_end_to_end() -> dict:
         "lazy_greedy_device_s": wall(lambda: lazy_greedy(f, K, mode="device")),
         "lazy_greedy_host_s": wall(lambda: lazy_greedy(f, K, mode="host")),
     }
-    for mode in ("device", "host"):
+    prefix = _stream(f, None, 0)[:2048]
+    runs = {f"greedy_{mode}": functools.partial(greedy, f, K, mode=mode)
+            for mode in ("device", "host")}
+    # a window of the streaming path: 2 048 elements of the device sieve
+    runs["sieve_device_2048"] = functools.partial(
+        sieve_streaming, f, K, order=prefix, mode="device", block_size=64)
+    for name, run in runs.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            greedy(f, K, mode=mode)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: an ATen op's own entry repeats the
+        # device time of the kernels it launched
         by_kernel = sorted(((e.self_device_time_total / 1e3, e.key)
                             for e in prof.key_averages()
-                            if e.self_device_time_total > 0), reverse=True)
+                            if e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0), reverse=True)
         busy = sum(t for t, _ in by_kernel)
-        out[f"greedy_{mode}_profiled_wall_ms"] = wall_ms
-        out[f"greedy_{mode}_device_busy_ms"] = busy
-        log(f"    profile greedy k={K} {mode}: wall {wall_ms:.1f} ms (profiler "
-            f"on), device busy {busy:.1f} ms" + (
+        out[f"{name}_profiled_wall_ms"] = wall_ms
+        out[f"{name}_device_busy_ms"] = busy
+        log(f"    profile {name} k={K}: wall {wall_ms:.1f} ms (profiler on), "
+            f"device busy {busy:.1f} ms" + (
                 "" if busy else " (no device time in the trace: not measured)"))
         for t, key in by_kernel[:4]:
             log(f"      {t:9.3f} ms  {key[:90]}")
@@ -931,9 +1273,11 @@ def main() -> int:
     check = Checker()
     phase_kernels(check)
     identical = phase_kernels_batched(check)
+    identical_sieve = phase_kernels_sieve(check)
     report_kernel_checks(check)
     log(f"    batched kernels: {identical} requests bit for bit equal to "
-        f"their unbatched launches (gains and folded cache)")
+        f"their unbatched launches (gains and folded cache); "
+        f"{identical_sieve} sieve partitions bit for bit equal to theirs")
 
     log("[3] main path at the paper's size")
     ops.LAUNCHES.clear()
@@ -943,13 +1287,23 @@ def main() -> int:
     log("[3b] multi-tenant serving (SelectionService, run_selection_batch)")
     serve_walls, V64, Vpaper, serve_launches, serve_shapes = phase_serving()
     walls.update(serve_walls)
+    log("[3c] streaming at the paper's size (sieve family, ingestion "
+        "services)")
+    t0 = time.perf_counter()
+    ops.LAUNCHES.clear()
+    walls.update(phase_streaming())
+    stream_launches = dict(ops.LAUNCHES)
+    log(f"    launches: {json.dumps(stream_launches)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
     # each path's own launches: the main path's four kernels, the serving
-    # path's two
+    # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}
     launches.update({k: serve_launches.get(k, 0) for k in SERVING_KERNELS})
+    launches.update({k: stream_launches.get(k, 0) for k in STREAM_KERNELS})
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:
-        raise AssertionError(f"main and serving paths launched no {missing}")
+        raise AssertionError(f"main, serving and streaming paths launched no "
+                             f"{missing}")
 
     log("[4] timing at the main path's shapes (fp32, CUDA events)")
     peaks = peaks_for(torch.cuda.get_device_name(0))
@@ -961,9 +1315,9 @@ def main() -> int:
         bound_ms, bound_by = r["bound"]
         extra = {k: v for k, v in r.items()
                  if k not in ("ms", "plain_ms", "library_ms", "bound")}
-        log(f"    {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-            f"ms, cuBLAS Gram {r['library_ms']:.3f} ms, bound {bound_ms:.3f} "
-            f"ms ({bound_by}) {json.dumps(extra)}")
+        log(f"    {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, {LIBRARY[name]} {r['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}) {json.dumps(extra)}")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

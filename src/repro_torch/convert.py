@@ -5,7 +5,8 @@ set V, the auxiliary vector e0, the ``EvalConfig`` fields, a packed multiset
 and a ``(vec, aux)`` cache. These functions take them as numpy arrays and
 plain values (what ``np.asarray`` and ``dataclasses.asdict`` give on the JAX
 side) and build the port's objects on a device — ``"cuda"`` unless the
-caller names another.
+caller names another. A streaming engine's state (the reference's
+``SieveState``) carries across the same way, field by field.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.core.evaluator import EvalConfig
 from repro_torch.core.functions import FUNCTIONS, ExemplarClustering, SubmodularFunction
 from repro_torch.core.multiset import PackedMultiset, resolve_device
+from repro_torch.core.streaming import SieveState
 
 #: The JAX package's evaluation backends and their counterparts here.
 BACKENDS = {"jnp": "torch", "naive": "naive", "pallas": "cuda",
@@ -99,3 +101,23 @@ def cache_from_arrays(vec: np.ndarray, aux: float = 0.0, device=None):
     return (torch.as_tensor(np.array(vec, dtype=np.float32), device=dev),
             torch.tensor(float(np.asarray(aux)), dtype=torch.float32,
                          device=dev))
+
+
+def sieve_state_from_arrays(fields, device=None) -> SieveState:
+    """A :class:`~repro_torch.core.streaming.SieveState` from the JAX
+    package's, given as a mapping of its field names to numpy arrays
+    (``{k: np.asarray(v) for k, v in state._asdict().items()}``) — an
+    engine's table carried across mid-stream. Dtypes are the port's:
+    float32 caches and scalars, int32 exponents, sizes, members and
+    evaluation count, bool ``active``."""
+    dev = resolve_device(device)
+    dtypes = {"caches": torch.float32, "slot_exp": torch.int32,
+              "active": torch.bool, "sizes": torch.int32,
+              "members": torch.int32, "m_seen": torch.float32,
+              "lb": torch.float32, "evals": torch.int32}
+    missing = set(dtypes) - set(fields)
+    if missing:
+        raise ValueError(f"SieveState fields missing: {sorted(missing)}")
+    return SieveState(**{
+        name: torch.as_tensor(np.array(fields[name]), dtype=dt, device=dev)
+        for name, dt in dtypes.items()})

@@ -14,9 +14,14 @@ from repro_torch.core.functions import (FUNCTIONS, ExemplarClustering, FacilityL
                                         FeatureBased, FnSpec, GraphCut, SaturatedCoverage,
                                         SubmodularFunction)
 from repro_torch.core.multiset import PackedMultiset, pack_base_plus_candidates, pack_sets
-from repro_torch.core.optimizers import OPTIMIZERS, greedy, lazy_greedy, stochastic_greedy
+from repro_torch.core.optimizers import (OPTIMIZERS, greedy, lazy_greedy, salsa, sieve_streaming,
+                                         sieve_streaming_pp, stochastic_greedy, three_sieves)
 from repro_torch.core.precision import BF16, FP16, FP16_STRICT, FP32, PrecisionPolicy
-from repro_torch.core.service import SelectionService
+from repro_torch.core.service import (MultiStreamIngestionService, MultiStreamSnapshot,
+                                      SelectionService, SieveSnapshot, StreamIngestionService)
+from repro_torch.core.streaming import (BatchedSieveEngine, DeviceSieveEngine, HostSieveMirror,
+                                        SieveSpec, SieveState, make_batched_sieve_engine,
+                                        make_sieve_engine)
 
 __all__ = [
     "BF16", "FP16", "FP16_STRICT", "FP32", "PrecisionPolicy",
@@ -28,5 +33,10 @@ __all__ = [
     "PackedMultiset",
     "pack_base_plus_candidates", "pack_sets", "OPTIMIZERS", "OptResult",
     "greedy", "lazy_greedy", "stochastic_greedy", "ExemplarModel",
-    "fit_exemplar_clustering",
+    "fit_exemplar_clustering", "salsa", "sieve_streaming",
+    "sieve_streaming_pp", "three_sieves", "BatchedSieveEngine",
+    "DeviceSieveEngine", "HostSieveMirror", "SieveSpec", "SieveState",
+    "make_batched_sieve_engine", "make_sieve_engine",
+    "MultiStreamIngestionService", "MultiStreamSnapshot", "SieveSnapshot",
+    "StreamIngestionService",
 ]

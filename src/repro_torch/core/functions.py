@@ -40,6 +40,7 @@ from repro_torch.core.evaluator import EvalConfig, e0_distances, evaluate_multis
 from repro_torch.core.multiset import (PackedMultiset, pack_base_plus_candidates,
                                        pack_sets, resolve_device)
 from repro_torch.core.precision import PrecisionPolicy
+from repro_torch.core.precision import resolve as resolve_policy
 
 #: Similarity transform s = relu(SIM_ALPHA + SIM_BETA · d): the ONE affine
 #: the kernels evaluate in-tile.
@@ -52,6 +53,12 @@ SIM_SELF = 1.0
 #: winner distances.
 DEVICE_PLAN_ELIGIBLE = frozenset(
     {"exemplar", "facility_location", "graph_cut", "saturated_coverage"})
+
+#: Functions the streaming sieve table supports: threshold sieves need
+#: monotone gains from the (S_max, n) row caches alone (graph cut's gain
+#: needs the winner-indexed penalty, which a stream element does not have).
+SIEVE_ELIGIBLE = frozenset(
+    {"exemplar", "facility_location", "saturated_coverage"})
 
 
 class FnSpec(NamedTuple):
@@ -190,6 +197,34 @@ def value_from_stat(spec: FnSpec, v0, mean_stat, aux=0.0, n_total=1):
     return mean_stat
 
 
+def sieve_gain_rows(spec: FnSpec, caches, dvec, row_aux):
+    """(…, rows, n) per-element gain contributions of stream elements
+    (distance rows ``dvec`` (…, n)) against each cache row of ``caches``
+    (…, rows, n) — the torch form of the sieve kernel template."""
+    dv = dvec.unsqueeze(-2)
+    if spec.name == "exemplar":
+        return torch.clamp_min(caches - dv, 0.0)
+    if spec.name == "facility_location":
+        return torch.clamp_min((SIM_ALPHA + SIM_BETA * dv) - caches, 0.0)
+    if spec.name == "saturated_coverage":
+        s = similarity(dv)
+        return torch.minimum(caches + s, row_aux) - torch.minimum(caches,
+                                                                 row_aux)
+    raise ValueError(f"function {spec.name!r} has no sieve-row gain form")
+
+
+def sieve_fold_rows(spec: FnSpec, caches, dvec, accept, out=None):
+    """Fold stream elements (distance rows ``dvec`` (…, n)) into the rows
+    of ``caches`` (…, rows, n) where ``accept`` (…, rows) holds; ``out``
+    may be ``caches`` itself (an in-place fold)."""
+    folded = fold_vec_rows(spec, caches, dvec.unsqueeze(-2))
+    return torch.where(accept.unsqueeze(-1), folded, caches, out=out)
+
+
+def _point_distances_block(V, X, distance: str, policy: PrecisionPolicy):
+    return dist_mod.resolve_pairwise(distance)(V, X, policy).T.contiguous()
+
+
 def _saturation_caps(V, sat: float, distance: str, policy: PrecisionPolicy,
                      block: int) -> torch.Tensor:
     """cap_i = sat · Σ_j s(d(v_i, v_j)) in (n, block) column tiles (the
@@ -318,6 +353,33 @@ class SubmodularFunction:
         vec, aux = cache
         mean = torch.mean(stat_rows(self.spec, vec, self.row_aux))
         return float(value_from_stat(self.spec, self.v0, mean, aux, self.n))
+
+    # -- streaming hooks ----------------------------------------------------
+
+    def point_distances(self, x: torch.Tensor) -> torch.Tensor:
+        """d(v_i, x) for all i — one streaming element against the ground set."""
+        pair = dist_mod.resolve_pairwise(self.cfg.distance)
+        x = torch.as_tensor(x, device=self.device)
+        return pair(self.V, x[None, :], self.cfg.resolved_policy())[:, 0]
+
+    def point_distances_block(
+            self, X, policy: "Optional[str | PrecisionPolicy]" = None
+    ) -> torch.Tensor:
+        """d(v_i, x_b) for a block of B stream elements — (B, n), contiguous.
+
+        One distance product for the whole block; row b matches
+        ``point_distances(X[b])`` up to the product's summation order, which
+        may depend on B (the sieve engines therefore run it at one block
+        shape). ``policy`` overrides the config's precision policy for this
+        block (a name or a :class:`~repro_torch.core.precision.
+        PrecisionPolicy`), so the streaming engine can ingest at one
+        precision while the sieve state stays float32.
+        """
+        pol = resolve_policy(policy if policy is not None
+                             else self.cfg.resolved_policy())
+        return _point_distances_block(
+            self.V, torch.as_tensor(X, device=self.device), self.cfg.distance,
+            pol)
 
     # -- metadata ------------------------------------------------------------
 

@@ -27,7 +27,7 @@ count identically.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -213,8 +213,177 @@ def stochastic_greedy(
     return OptResult(selected, traj[-1], traj, evals)
 
 
+# ---------------------------------------------------------------------------
+# Streaming sieves — built on the streaming sieve engine
+# (:mod:`repro_torch.core.streaming`): a fixed-capacity table of threshold
+# sieves keyed by integer exponent, offered every arriving element. Like the
+# greedy family, each algorithm composes one accept-rule *variant* with an
+# execution plan: ``mode="host"`` steps the table one call per element and
+# reads each accept flag back (the exact mirror), ``mode="device"`` runs each
+# stream block of B elements back to back on the device with no host read
+# between them.
+# ---------------------------------------------------------------------------
+
+
+def _stream_eval_count(n_elements: int, n_sieves: int) -> int:
+    """Streaming ``evaluations`` unit, identical across the sieve family:
+    each arriving element is scored against every live sieve in one engine
+    call (min. 1 — the singleton gain is always computed)."""
+    return n_elements * max(n_sieves, 1)
+
+
+def _stream(f: SubmodularFunction, order: Optional[Sequence[int]],
+            seed: int) -> np.ndarray:
+    """The stream order: ``order`` as given, else a shuffle of the ground
+    set drawn from ``np.random.default_rng(seed)`` — the JAX package's
+    draw, so a seed names the same stream in both."""
+    idx = np.arange(f.n)
+    if order is None:
+        np.random.default_rng(seed).shuffle(idx)
+        return idx
+    return np.asarray(order)
+
+
+def _stream_blocks(f: ExemplarClustering, order: Optional[Sequence[int]],
+                   seed: int, block: int):
+    """Yield (indices, distance rows, singleton gains) per stream block, as
+    numpy: one distance product per block of B stream elements. Exemplar
+    only: the singleton gains read d_e0 directly."""
+    idx = _stream(f, order, seed)
+    d_e0 = _host(f.d_e0.to(torch.float32))
+    for s in range(0, len(idx), block):
+        ib = idx[s:s + block]
+        dmat = _host(f.point_distances_block(
+            f.V[torch.as_tensor(ib, device=f.device)]).to(torch.float32))
+        singles = np.maximum(d_e0[None, :] - dmat, 0.0).mean(axis=1)
+        yield ib, dmat, singles
+
+
+def _run_sieve(f: SubmodularFunction, k: int, eps: float, variant: str,
+               order, seed: int, block_size: int, mode: str,
+               s_max: Optional[int], mesh=None) -> OptResult:
+    """Drive a sieve-table engine over the stream under the host or device
+    plan (``mesh`` / ``mode="device_sharded"`` raise, naming ROADMAP A.7)."""
+    from repro_torch.core.streaming import make_sieve_engine
+
+    idx = _stream(f, order, seed)
+    eng = make_sieve_engine(f, k, eps, variant=variant, mode=mode,
+                            s_max=s_max, block_size=block_size, mesh=mesh)
+    for s in range(0, len(idx), block_size):
+        ib = idx[s:s + block_size]
+        eng.offer(ib, f.V[torch.as_tensor(ib, device=f.device)])
+    members, value = eng.best()
+    return OptResult(members, value, [value], eng.evaluations())
+
+
+def sieve_streaming(
+    f: SubmodularFunction, k: int, eps: float = 0.1,
+    order: Optional[Sequence[int]] = None, seed: int = 0,
+    block_size: int = 64, mode: str = "host",
+    s_max: Optional[int] = None, mesh=None,
+) -> OptResult:
+    """SieveStreaming [4]: thresholds (1+ε)^i ∈ [m, 2km], m = max singleton.
+
+    ``mode="device"`` runs each stream block on the device with no host read
+    between its elements; ``mode="host"`` is the per-element mirror.
+    ``s_max`` overrides the sieve-table capacity (see
+    :mod:`repro_torch.core.streaming`).
+    """
+    return _run_sieve(f, k, eps, "sieve", order, seed, block_size, mode,
+                      s_max, mesh=mesh)
+
+
+def sieve_streaming_pp(
+    f: SubmodularFunction, k: int, eps: float = 0.1,
+    order: Optional[Sequence[int]] = None, seed: int = 0,
+    block_size: int = 64, mode: str = "host",
+    s_max: Optional[int] = None, mesh=None,
+) -> OptResult:
+    """SieveStreaming++ [19]: prune sieves below LB = best current value.
+
+    LB moves after every accept, so the grid window is re-derived per
+    element, on the device under ``mode="device"``.
+    """
+    return _run_sieve(f, k, eps, "pp", order, seed, block_size, mode, s_max,
+                      mesh=mesh)
+
+
+def three_sieves(
+    f: SubmodularFunction, k: int, eps: float = 0.1, T: int = 50,
+    order: Optional[Sequence[int]] = None, seed: int = 0,
+    block_size: int = 64,
+) -> OptResult:
+    """ThreeSieves [18]: one sieve, threshold lowered after T rejections.
+    Runs on the host in numpy over the distance rows of each block."""
+    f = _require_exemplar(f, "three_sieves")
+    cache = _host(f.init_mincache())
+    members: list[int] = []
+    evals = 0
+    m_seen = 0.0
+    tau_idx: Optional[int] = None  # current exponent into the (1+eps) grid
+    rejections = 0
+    done = False
+    for ib, dmat, singles in _stream_blocks(f, order, seed, block_size):
+        for bi, idx in enumerate(ib):
+            if singles[bi] > m_seen:
+                m_seen = float(singles[bi])
+                hi = k * m_seen
+                tau_idx = math.floor(math.log(hi) / math.log1p(eps)) \
+                    if hi > 0 else None
+                rejections = 0
+            if tau_idx is None or len(members) >= k:
+                # no gain computed for a full/unarmed sieve — and none
+                # counted: ``evaluations`` reflects work actually done
+                continue
+            dvec = dmat[bi]
+            gain = float(np.maximum(cache - dvec, 0.0).mean())
+            evals += _stream_eval_count(1, 1)
+            tau = (1 + eps) ** tau_idx
+            f_cur = f.L0 - float(cache.mean())
+            need = (tau - f_cur) / max(k - len(members), 1)
+            if gain >= need:
+                members.append(int(idx))
+                cache = np.minimum(cache, dvec)
+                rejections = 0
+            else:
+                rejections += 1
+                if rejections >= T:
+                    tau_idx -= 1
+                    rejections = 0
+                    if (1 + eps) ** tau_idx < m_seen / (2 * k):
+                        done = True  # threshold exhausted
+                        break
+        if done:
+            break
+    value = f.L0 - float(cache.mean())
+    return OptResult(members, value, [value], evals)
+
+
+def salsa(
+    f: SubmodularFunction, k: int, eps: float = 0.1,
+    order: Optional[Sequence[int]] = None, seed: int = 0,
+    block_size: int = 64, mode: str = "host",
+    s_max: Optional[int] = None, mesh=None,
+) -> OptResult:
+    """Salsa [20], simplified: an ensemble of dense-threshold passes.
+
+    Per OPT guess on the (1+ε) grid, a *dense* policy accepts element e into
+    sieve S when Δ(e|S) ≥ r·OPT_guess/k, with r = 1/2 for the first ⌈k/2⌉
+    members and 1/(2e) after (so k=1 still applies the early rate); the
+    best sieve is returned. Single pass, same memory as SieveStreaming. The
+    grid is grow-only; under capacity pressure the sieve table evicts the
+    lowest exponent (see :mod:`repro_torch.core.streaming`).
+    """
+    return _run_sieve(f, k, eps, "salsa", order, seed, block_size, mode,
+                      s_max, mesh=mesh)
+
+
 OPTIMIZERS = {
     "greedy": greedy,
     "lazy_greedy": lazy_greedy,
     "stochastic_greedy": stochastic_greedy,
+    "sieve_streaming": sieve_streaming,
+    "sieve_streaming_pp": sieve_streaming_pp,
+    "three_sieves": three_sieves,
+    "salsa": salsa,
 }

@@ -28,6 +28,14 @@ the same kernel body, one request per ``blockIdx.y``, each with its own
 winner and ``w_valid`` gate. A request's outputs are bit for bit those of
 its own unbatched launch (the multi-tenant engine's batched == unbatched
 contract rests on it).
+
+:func:`sieve_gain_eval` and :func:`sieve_gain_eval_batched` replace the
+streaming engine's Pallas kernels (``_sieve_gain_kernel``,
+``_sieve_gain_kernel_batched``): the same min/max template, scored for
+every row of a sieve-cache table against one stream element's distance row
+(no Gram product: the distances come in precomputed). They live in
+``csrc/sieve_gain.cu``, whose note says what bounds them (device memory,
+and at the stream's one launch per element, the launch itself).
 """
 from __future__ import annotations
 
@@ -315,3 +323,108 @@ def gain_update_eval_batched(
         -1.0 if rbf_gamma is None else float(rbf_gamma), fmax, a, b,
         _build.POLICY_CODES[policy.name], code, _build.stream_ptr(V.device))
     return gains, cache_out
+
+
+# ---------------------------------------------------------------------------
+# sieve_gain — the streaming engine's table × element scoring
+# ---------------------------------------------------------------------------
+
+
+def sieve_gain_eval_plain(T, dvec, *, n_total: int, fold: str = "min",
+                          affine: Optional[tuple] = None) -> torch.Tensor:
+    """Plain version of :func:`sieve_gain_eval` — (r,) float32. The affine
+    rounds as the kernel's does: a product, then a sum."""
+    if fold == "min":
+        g = torch.clamp_min(T - dvec[None, :], 0.0)
+    else:
+        a, b = affine
+        g = torch.clamp_min((a + b * dvec)[None, :] - T, 0.0)
+    return torch.sum(g, dim=1) / n_total
+
+
+def sieve_gain_eval_batched_plain(T, dvec, *, n_total: int, fold: str = "min",
+                                  affine: Optional[tuple] = None
+                                  ) -> torch.Tensor:
+    """Plain version of :func:`sieve_gain_eval_batched` — (P, r) float32:
+    each partition's row is its own :func:`sieve_gain_eval_plain` call."""
+    out = torch.empty(T.shape[:2], dtype=torch.float32, device=T.device)
+    for p in range(T.shape[0]):
+        out[p] = sieve_gain_eval_plain(T[p], dvec[p], n_total=n_total,
+                                       fold=fold, affine=affine)
+    return out
+
+
+def _check_sieve_operands(T, dvec, fold, affine, batched):
+    nd = 3 if batched else 2
+    if T.ndim != nd or dvec.shape != (*T.shape[:-2], T.shape[-1]):
+        want = "T (P, r, n) and dvec (P, n)" if batched \
+            else "T (r, n) and dvec (n,)"
+        raise ValueError(f"{want} expected, got {tuple(T.shape)} and "
+                         f"{tuple(dvec.shape)}")
+    if dvec.device != T.device:
+        raise ValueError(f"dvec is on {dvec.device}, T on {T.device}")
+    if T.dtype != torch.float32 or dvec.dtype != torch.float32:
+        raise ValueError("T and dvec must be float32")
+    if not (T.is_contiguous() and dvec.is_contiguous()):
+        raise ValueError("T and dvec must be contiguous")
+    if fold not in ("min", "max"):
+        raise ValueError(f"fold must be 'min' or 'max', got {fold!r}")
+    if fold == "max" and affine is None:
+        raise ValueError("fold='max' needs the score affine (alpha, beta)")
+    a, b = affine if affine is not None else (0.0, 0.0)
+    return int(fold == "max"), float(a), float(b)
+
+
+def sieve_gain_eval(
+    T: torch.Tensor,          # (r, n) float32 cache-table rows
+    dvec: torch.Tensor,       # (n,) float32 distance row of one element
+    *,
+    n_total: int,
+    fold: str = "min",
+    affine: Optional[tuple] = None,
+) -> torch.Tensor:
+    """Per-row gains of a cache table against one stream element — (r,).
+
+    Rows are arbitrary caches (live sieves, stale slots, or the seed, whose
+    gain is the singleton gain Δ(e | ∅)); callers mask rows downstream. The
+    kernel masks the ragged n edge itself: no padding columns.
+    """
+    if not T.is_cuda:
+        return sieve_gain_eval_plain(T, dvec, n_total=n_total, fold=fold,
+                                     affine=affine)
+    fmax, a, b = _check_sieve_operands(T, dvec, fold, affine, batched=False)
+    r, n = T.shape
+    out = torch.empty(r, dtype=torch.float32, device=T.device)
+    if r == 0:
+        return out
+    _build.launch(
+        "sieve_gain_eval", "sieve_gain", "repro_sieve_gain_eval", T.data_ptr(),
+        dvec.data_ptr(), out.data_ptr(), r, n, float(n_total), fmax, a, b,
+        _build.stream_ptr(T.device))
+    return out
+
+
+def sieve_gain_eval_batched(
+    T: torch.Tensor,          # (P, r, n) float32 per-partition tables
+    dvec: torch.Tensor,       # (P, n) float32 per-partition element rows
+    *,
+    n_total: int,
+    fold: str = "min",
+    affine: Optional[tuple] = None,
+) -> torch.Tensor:
+    """:func:`sieve_gain_eval` for P stream partitions in one launch —
+    (P, r); each partition's row is bit for bit its own unbatched launch."""
+    if not T.is_cuda:
+        return sieve_gain_eval_batched_plain(T, dvec, n_total=n_total,
+                                             fold=fold, affine=affine)
+    fmax, a, b = _check_sieve_operands(T, dvec, fold, affine, batched=True)
+    P, r, n = T.shape
+    out = torch.empty((P, r), dtype=torch.float32, device=T.device)
+    if P == 0 or r == 0:
+        return out
+    _build.launch(
+        "sieve_gain_eval_batched", "sieve_gain",
+        "repro_sieve_gain_eval_batched", T.data_ptr(), dvec.data_ptr(),
+        out.data_ptr(), P, r, n, float(n_total), fmax, a, b,
+        _build.stream_ptr(T.device))
+    return out

@@ -1,6 +1,5 @@
-"""Public wrappers around the CUDA kernels (the exemplar-eval and gain
-halves of the reference's ``kernels/ops.py``; the sieve half waits for the
-streaming slice).
+"""Public wrappers around the CUDA kernels (the exemplar-eval, gain and
+sieve halves of the reference's ``kernels/ops.py``).
 
 Handles what the CUDA host code in the paper handles:
 
@@ -226,3 +225,54 @@ def fused_gain_update(
         rbf_gamma=rbf_gamma, fold=fold,
         affine=None if score_affine is None else tuple(score_affine),
         cache_out=cache_out)
+
+
+# ---------------------------------------------------------------------------
+# sieve_gain — the streaming sieve engine's table × element scoring
+# ---------------------------------------------------------------------------
+
+
+def sieve_gains(
+    table: torch.Tensor,      # (r, n) float32 per-element cache rows
+    dvec: torch.Tensor,       # (n,) float32 one element's distances to V
+    *,
+    n_total: Optional[int] = None,
+    fold: str = "min",
+    score_affine: Optional[tuple] = None,
+) -> torch.Tensor:
+    """Per-row gains of a cache table vs one stream element — (r,).
+
+    min template (default): row r gets
+    ``n_total⁻¹ Σ_i relu(table[r, i] − dvec[i])``; max template
+    (``fold="max"``, ``score_affine=(α, β)``):
+    ``n_total⁻¹ Σ_i relu((α + β·dvec[i]) − table[r, i])``. Row = a sieve's
+    cache → its marginal gain Δ(e | S_r); row = the seed → the singleton
+    gain Δ(e | ∅). ``n_total`` overrides the n normalizer. No padding: the
+    kernel stops at n itself.
+    """
+    return _mg.sieve_gain_eval(
+        table.to(torch.float32).contiguous(),
+        dvec.to(torch.float32).contiguous(),
+        n_total=n_total if n_total is not None else table.shape[-1],
+        fold=fold,
+        affine=None if score_affine is None else tuple(score_affine))
+
+
+def sieve_gains_batched(
+    tables: torch.Tensor,     # (P, r, n) float32 per-partition cache rows
+    dvecs: torch.Tensor,      # (P, n) float32 per-partition element distances
+    *,
+    n_total: Optional[int] = None,
+    fold: str = "min",
+    score_affine: Optional[tuple] = None,
+) -> torch.Tensor:
+    """Batched :func:`sieve_gains` — P partition tables scored against P
+    stream elements in one launch; returns (P, r). Each partition's gains
+    are bit for bit its own :func:`sieve_gains` call (the batched
+    multi-stream sieve engine's parity rests on it)."""
+    return _mg.sieve_gain_eval_batched(
+        tables.to(torch.float32).contiguous(),
+        dvecs.to(torch.float32).contiguous(),
+        n_total=n_total if n_total is not None else tables.shape[-1],
+        fold=fold,
+        affine=None if score_affine is None else tuple(score_affine))

@@ -185,3 +185,73 @@ def test_selection_service_round_trip_on_the_card(dev):
                            mode="device")
     for X, r in zip(Xs, lazy):
         assert r == lazy_greedy(ExemplarClustering(X, cfg), 3, mode="device")
+
+
+def _sieve_operands(dev, lead, r, n, fold, seed=0):
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.0, 2.0, size=(*lead, n))
+    if fold == "min":
+        T = d[..., None, :] + rng.uniform(-0.3, 1.0, size=(*lead, r, n))
+        T[..., 0] = d[..., None, 0] + 0.5
+    else:
+        T = rng.uniform(0.0, 0.8, size=(*lead, r, n))
+        d[..., 0], T[..., 0] = 0.5, 0.0
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=dev).contiguous()
+    return t(T), t(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("r,n", [(1, 1), (35, 4099), (65, 50_000)])
+def test_sieve_kernel_matches_plain(dev, r, n, fold):
+    """fp32 sums of the same terms in another order: the fp32 band of the
+    gain kernels, on the error over max(1, max|plain|)."""
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    T, d = _sieve_operands(dev, (), r, n, fold, seed=r)
+    aff = (SIM_ALPHA, SIM_BETA) if fold == "max" else None
+    before = ops.LAUNCHES["sieve_gain_eval"]
+    got = mg.sieve_gain_eval(T, d, n_total=n, fold=fold, affine=aff)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sieve_gain_eval"] == before + 1
+    _band(got, mg.sieve_gain_eval_plain(T, d, n_total=n, fold=fold,
+                                        affine=aff), BANDS["fp32"], 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("P", [1, 3, 16])
+def test_batched_sieve_kernel_equals_unbatched_per_partition(dev, P, fold):
+    from repro_torch.kernels import marginal_gain as mg
+
+    T, d = _sieve_operands(dev, (P,), 35, 4099, fold, seed=P)
+    aff = (SIM_ALPHA, SIM_BETA) if fold == "max" else None
+    got = mg.sieve_gain_eval_batched(T, d, n_total=4099, fold=fold,
+                                     affine=aff)
+    _band(got, mg.sieve_gain_eval_batched_plain(T, d, n_total=4099, fold=fold,
+                                                affine=aff),
+          BANDS["fp32"], 1.0)
+    for p in range(P):
+        one = mg.sieve_gain_eval(T[p], d[p], n_total=4099, fold=fold,
+                                 affine=aff)
+        assert torch.equal(one, got[p])
+
+
+@pytest.mark.cuda
+def test_sieve_streaming_host_equals_device_on_the_card(dev):
+    """Both plans run the sieve kernel once per element, and agree."""
+    from repro_torch.core import EvalConfig, ExemplarClustering, sieve_streaming
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import ops
+
+    X, _ = blobs(2000, 16, centers=8, seed=1)
+    f = ExemplarClustering(X, EvalConfig(backend="cuda"))
+    before = ops.LAUNCHES["sieve_gain_eval"]
+    res = {m: sieve_streaming(f, 6, seed=2, mode=m, block_size=64)
+           for m in ("host", "device")}
+    assert ops.LAUNCHES["sieve_gain_eval"] == before + 2 * f.n
+    assert res["host"].indices == res["device"].indices
+    assert res["host"].evaluations == res["device"].evaluations
+    assert res["host"].value == res["device"].value

@@ -123,8 +123,14 @@ def test_fit_exemplar_clustering_assign_matches_reference():
     np.testing.assert_array_equal(model.assign(X), jmodel.assign(X))
     np.testing.assert_array_equal(model.exemplars, X[model.exemplar_indices])
     with pytest.raises(ValueError):
-        fit_exemplar_clustering(X, 2, optimizer="sieve_streaming",
+        fit_exemplar_clustering(X, 2, optimizer="no_such_optimizer",
                                 device="cpu")
+    # the streaming optimizers are registered too
+    model = fit_exemplar_clustering(X, 3, optimizer="sieve_streaming",
+                                    device="cpu", seed=4, mode="device")
+    jmodel = jfit(jnp.asarray(X), 3, optimizer="sieve_streaming", seed=4,
+                  mode="device")
+    assert model.exemplar_indices == jmodel.exemplar_indices
 
 
 def test_device_plan_stays_on_the_device_until_it_ends(monkeypatch):
