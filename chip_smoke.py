@@ -18,7 +18,13 @@ Phases (any failure exits non-zero before the result lines):
    each request of a batched launch bit for bit equal to its own unbatched
    launch. The sieve kernels at r ∈ {1, 35, 65} rows and ragged n up to
    50 000, both templates, and the batched one at P ∈ {1, 3, 16}, each
-   partition bit for bit its unbatched launch.
+   partition bit for bit its unbatched launch. The gain and exemplar-eval
+   kernels at n on either side of their segment edges (SEG − 1, SEG,
+   SEG + 1, 2·SEG + 1) and at n = 50 000, all four policies; then their
+   column invariance, bit for bit: ``gain_eval`` / ``gain_update_eval`` at
+   m ∈ {1, 33, 256, 257} against the same candidates of the m = 50 000
+   launch, ``fused_eval`` on 97 sets against the l = 5 000 launch, at fp32
+   and fp16_strict.
 3. The main path at the paper's size (N=50 000, l=5 000, k=10, dim=100):
    multiset evaluation in fused/flat, fused/loop and two_pass against the
    ``torch`` backend; greedy, stochastic and lazy greedy on the device plan
@@ -51,7 +57,9 @@ Phases (any failure exits non-zero before the result lines):
    the same table), and the least time the card could take (its bound).
    The batched gain kernels are timed at B = 64, n = m = 8 192, d = 100;
    the sieve kernels at the streaming phase's tables: (35, 50 000),
-   (65, 50 000) and (16, 35, 50 000).
+   (65, 50 000) and (16, 35, 50 000). ``fused_eval``, ``gain_eval`` and
+   ``gain_update_eval`` are also timed at bf16 and fp16 (``bf16_ms``,
+   ``fp16_ms``).
 
 5. Steady-state wall times of the main path's calls, and profiles (device
    busy time by kernel against wall time) of greedy in both plans and of a
@@ -115,6 +123,15 @@ KERNELS = {
 MAIN_KERNELS = ("fused_eval", "two_pass_eval", "gain_eval", "gain_update_eval")
 SERVING_KERNELS = ("gain_eval_batched", "gain_update_eval_batched")
 STREAM_KERNELS = ("sieve_gain_eval", "sieve_gain_eval_batched")
+#: Each kernel's time before the two Gram kernels split n into segments
+#: (the earlier times of PERF.md's kernel table: this script on an H100
+#: 80GB HBM3 at 700 W), printed beside this run's; ``gain_eval`` also has
+#: its m = 256 re-score (``top256``).
+EARLIER_MS = {"fused_eval": 100.33, "two_pass_eval": 100.17,
+              "gain_eval": 35.88, "gain_eval top256": 5.73,
+              "gain_update_eval": 38.57, "gain_eval_batched": 61.01,
+              "gain_update_eval_batched": 64.31,
+              "sieve_gain_eval": 0.00771, "sieve_gain_eval_batched": 0.0454}
 #: The yardstick each kernel is timed beside (``library_ms``).
 LIBRARY = {name: "cuBLAS Gram" for name in MAIN_KERNELS + SERVING_KERNELS}
 LIBRARY.update({name: "torch.sum yardstick" for name in STREAM_KERNELS})
@@ -475,6 +492,129 @@ def phase_kernels_sieve(check: Checker) -> int:
                             f"differs from its unbatched launch")
                     identical += 1
     return identical
+
+
+def phase_invariance(N=50_000, L=5_000, K=10, DIM=100) -> dict:
+    """The gain and exemplar-eval kernels split n into fixed segments, so a
+    column's bits depend on n and its own inputs only: a ``gain_eval`` /
+    ``gain_update_eval`` launch at m ∈ {1, 33, 256, 257} must give the same
+    candidates' columns of the m = N launch bit for bit, and ``fused_eval``
+    on 97 of the sets the same sets' values of the l = L launch, at fp32 and
+    fp16_strict. Returns the number of columns compared per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.evaluator import e0_distances
+    from repro_torch.core.precision import resolve
+    from repro_torch.data.synthetic import uniform_problem
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    V = torch.as_tensor(uniform_problem(N, DIM, seed=0), device=dev)
+    S = torch.as_tensor(uniform_problem(L * K, DIM, seed=1), device=dev
+                        ).reshape(L, K, DIM)
+    lengths = torch.as_tensor(rng.integers(1, K + 1, size=L), dtype=torch.int32,
+                              device=dev)
+    w = V[123].contiguous()
+    wv = torch.ones((), device=dev)
+    compared = {"gain_eval": 0, "gain_update_eval": 0, "fused_eval": 0}
+
+    def same(name, what, got, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"{name} [{what}]: {bad} of {got.numel()} "
+                                 f"columns differ from the full launch")
+        compared[name] += got.numel()
+
+    for pol in ("fp32", "fp16_strict"):
+        p = resolve(pol)
+        cache = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+        kw = dict(n_total=N, policy=p)
+        full = mg.gain_eval(V, V, cache, **kw)
+        fullu, _ = mg.gain_update_eval(V, V, cache, w, wv, **kw)
+        for m in (1, 33, 256, 257):
+            idx = torch.as_tensor(np.sort(rng.choice(N, size=m, replace=False)),
+                                  device=dev)
+            C = V[idx].contiguous()
+            same("gain_eval", f"{pol} m={m}", mg.gain_eval(V, C, cache, **kw),
+                 full[idx])
+            same("gain_update_eval", f"{pol} m={m}",
+                 mg.gain_update_eval(V, C, cache, w, wv, **kw)[0], fullu[idx])
+        d_e0 = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+        kc = ops.kernel_config(K, DIM, p).k_chunk
+        fkw = dict(n_total=N, policy=p, k_chunk=kc, layout="flat")
+        full = ee.fused_eval(V, S.permute(1, 0, 2).contiguous(), lengths, d_e0,
+                             **fkw)
+        idx = torch.as_tensor(np.sort(rng.choice(L, size=97, replace=False)),
+                              device=dev)
+        same("fused_eval", f"{pol} 97 of {L} sets",
+             ee.fused_eval(V, S[idx].permute(1, 0, 2).contiguous(),
+                           lengths[idx].contiguous(), d_e0, **fkw), full[idx])
+    log(f"    column invariance: every column bit for bit its full launch's "
+        f"({json.dumps(compared)} columns; gains at m in (1, 33, 256, 257) "
+        f"against m={N}, fused_eval on 97 sets against l={L}; fp32 and "
+        f"fp16_strict)")
+    return compared
+
+
+def phase_segment_edges(check: Checker):
+    """The gain and exemplar-eval kernels against their plain versions at
+    n on either side of the segment edges (SEG − 1, SEG, SEG + 1,
+    2·SEG + 1) and at the paper's n, for all four policies, through the
+    checker (each comparison must also catch the planted fault)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.evaluator import e0_distances
+    from repro_torch.core.precision import resolve
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    SEG = ops.SEG
+    l, k, d, m = 67, 7, 100, 257
+    for n in (SEG - 1, SEG, SEG + 1, 2 * SEG + 1, 50_000):
+        rng = np.random.default_rng(n)
+        t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+            np.asarray(a), dtype=dt, device=dev).contiguous()
+        V = t(rng.normal(size=(n, d)) + 2.0)
+        S = t(rng.normal(size=(l, k, d)) + 2.0)
+        lengths = t(rng.integers(1, k + 1, size=l), torch.int32)
+        C = t(rng.normal(size=(m, d)) + 2.0)
+        w = V[n // 2].contiguous()
+        cache = t(rng.uniform(0.5, 1.5, size=n) * 2 * d)
+        scale = float((V * V).sum(-1).max() + (S * S).sum(-1).max())
+        for pol in POLICIES:
+            p = resolve(pol)
+            tag = f"segment edge n={n} {pol}"
+            kc = ops.kernel_config(k, d, p).k_chunk
+            d_e0 = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+            Sk = S.permute(1, 0, 2).contiguous()
+            kw = dict(n_total=n, policy=p)
+            check("fused_eval",
+                  ee.fused_eval(V, Sk, lengths, d_e0, k_chunk=kc, **kw),
+                  ee.fused_eval_plain(V, Sk, lengths, d_e0, **kw), pol, tag,
+                  scale=scale)
+            check("two_pass_eval",
+                  ee.two_pass_eval(V, S, lengths, d_e0, k_chunk=kc, **kw) * n,
+                  ee.two_pass_eval_plain(V, S, lengths, d_e0, **kw) * n, pol,
+                  tag + " W·n", scale=scale)
+            check("gain_eval", mg.gain_eval(V, C, cache, **kw),
+                  mg.gain_eval_plain(V, C, cache, **kw), pol, tag, scale=scale)
+            wv = torch.ones((), device=dev)
+            g, nc = mg.gain_update_eval(V, C, cache, w, wv, **kw)
+            gp, ncp = mg.gain_update_eval_plain(V, C, cache, w, wv, **kw)
+            check("gain_update_eval", g, gp, pol, tag + " gains", scale=scale)
+            check("gain_update_eval", nc, ncp, pol, tag + " cache",
+                  scale=scale)
+    log(f"    segment edges: n in ({SEG - 1}, {SEG}, {SEG + 1}, "
+        f"{2 * SEG + 1}, 50000) x 4 policies within band of the plain "
+        f"versions (fused_eval, two_pass_eval, gain_eval, gain_update_eval)")
 
 
 def report_kernel_checks(check: Checker):
@@ -943,7 +1083,7 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
 
     from repro_torch.core.distances import fp32_is_ieee
     from repro_torch.core.evaluator import e0_distances
-    from repro_torch.core.precision import FP32
+    from repro_torch.core.precision import FP32, resolve
     from repro_torch.data.synthetic import blobs, uniform_problem
     from repro_torch.kernels import exemplar_eval as ee
     from repro_torch.kernels import marginal_gain as mg
@@ -988,6 +1128,7 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
 
     kw = dict(n_total=N, policy=FP32)
     rel = {}
+    extra_times = {}
 
     def agree(name, got, ref, what):
         """The kernel against its plain version at the main path's shapes:
@@ -1048,6 +1189,20 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
     rows["gain_eval"]["top256_library_ms"] = cuda_ms(lambda: Vb @ top.T, 20)
     rows["gain_eval"]["top256_bound_ms"] = bound(
         2.0 * N * 256 * DIM, 4 * (N * DIM + 256 * DIM + N + 256))[0]
+    # the half policies run the same SIMT kernels (payload rounded as it is
+    # staged); their tensor-core bound is another PR's yardstick
+    for pol in ("bf16", "fp16"):
+        ph = resolve(pol)
+        kwh = dict(n_total=N, policy=ph)
+        kch = ops.kernel_config(K, DIM, ph).k_chunk
+        extra_times[f"fused_eval {pol}_ms"] = cuda_ms(
+            lambda: ee.fused_eval(V, Sk, lengths, d_e0, k_chunk=kch,
+                                  layout="flat", **kwh), R)
+        extra_times[f"gain_eval {pol}_ms"] = cuda_ms(
+            lambda: mg.gain_eval(Vb, Vb, cache, **kwh), R)
+        extra_times[f"gain_update_eval {pol}_ms"] = cuda_ms(
+            lambda: mg.gain_update_eval(Vb, Vb, cache, w, wv,
+                                        cache_out=out_cache, **kwh), R)
     rows["gain_update_eval"] = dict(
         **kernel_ms(lambda: mg.gain_update_eval(Vb, Vb, cache, w, wv,
                                                 cache_out=out_cache, **kw)),
@@ -1161,6 +1316,9 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
     del T, d
     for name, r in rows.items():
         r["main_rel_err"] = rel[name]
+    for key, ms in extra_times.items():
+        name, field = key.split()
+        rows[name][field] = ms
     return rows
 
 
@@ -1274,7 +1432,9 @@ def main() -> int:
     phase_kernels(check)
     identical = phase_kernels_batched(check)
     identical_sieve = phase_kernels_sieve(check)
+    phase_segment_edges(check)
     report_kernel_checks(check)
+    phase_invariance()
     log(f"    batched kernels: {identical} requests bit for bit equal to "
         f"their unbatched launches (gains and folded cache); "
         f"{identical_sieve} sieve partitions bit for bit equal to theirs")
@@ -1315,9 +1475,13 @@ def main() -> int:
         bound_ms, bound_by = r["bound"]
         extra = {k: v for k, v in r.items()
                  if k not in ("ms", "plain_ms", "library_ms", "bound")}
-        log(f"    {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+        log(f"    {name}: kernel {r['ms']:.4f} ms (before the split of "
+            f"n: {EARLIER_MS[name]} ms), plain {r['plain_ms']:.4f} "
             f"ms, {LIBRARY[name]} {r['library_ms']:.4f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}) {json.dumps(extra)}")
+        if name == "gain_eval":
+            log(f"      m=256 re-score: {r['top256_ms']:.4f} ms (before the "
+                f"split of n: {EARLIER_MS['gain_eval top256']} ms)")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

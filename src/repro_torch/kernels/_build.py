@@ -46,21 +46,21 @@ _F = ctypes.c_float
 #: launch's cudaError_t.
 SIGNATURES = {
     "exemplar_eval": {
-        "repro_fused_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I,
-                             _F, _F, _I, _I, _P],
-        "repro_two_pass_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
-                                _I, _F, _F, _I, _I, _P],
+        "repro_fused_eval": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                             _I, _F, _F, _I, _I, _P],
+        "repro_two_pass_eval": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L,
+                                _L, _I, _F, _F, _I, _I, _P],
     },
     "marginal_gain": {
-        "repro_gain_eval": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F, _F,
-                            _I, _I, _P],
-        "repro_gain_update_eval": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                                   _F, _I, _F, _F, _I, _I, _P],
-        "repro_gain_eval_batched": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
-                                    _I, _F, _F, _I, _I, _P],
-        "repro_gain_update_eval_batched": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                           _I, _I, _F, _F, _I, _F, _F, _I, _I,
-                                           _P],
+        "repro_gain_eval": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _F,
+                            _F, _I, _I, _P],
+        "repro_gain_update_eval": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _F, _F, _I, _F, _F, _I, _I, _P],
+        "repro_gain_eval_batched": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                    _F, _I, _F, _F, _I, _I, _P],
+        "repro_gain_update_eval_batched": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _F, _F, _I, _F, _F, _I,
+                                           _I, _P],
     },
     "sieve_gain": {
         "repro_sieve_gain_eval": [_P, _P, _P, _I, _I, _F, _I, _F, _F, _P],
@@ -150,6 +150,18 @@ def library(name: str) -> ctypes.CDLL:
             lib.repro_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
     return _LIBS[name]
+
+
+#: Rows per segment of n (``SEG`` of csrc/tile.cuh). The gain and
+#: exemplar-eval kernels give each block one segment and sum each column's
+#: per-segment partials in segment order in a second pass.
+SEG = 256
+
+
+def n_segments(n: int) -> int:
+    """Segments of n rows (at least one) — csrc/tile.cuh ``n_segments``: a
+    function of n alone."""
+    return max(1, -(-n // SEG))
 
 
 #: Policy codes of the C entries (the template parameter P of csrc/tile.cuh).

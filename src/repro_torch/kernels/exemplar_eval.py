@@ -5,8 +5,13 @@ Replaces the Pallas TPU kernels of ``repro/kernels/exemplar_eval.py``
 bodies, and ``two_pass_eval``). The kernels live in ``csrc/exemplar_eval.cu``;
 see the note there for what bounds them on Hopper (the fp32 FMA rate: they
 are Gram products, compute-bound by far) and how the design keeps the FMA
-pipes fed (S staged once per k-chunk, V streamed through a small staged
-chunk, register tiles, a fixed reduction order).
+pipes fed: a fixed split of n into SEG-row segments, one per block, so the
+grid fills the card; each block's 32 sets staged once, feature-major;
+V streamed past them in double-buffered chunks prefetched through
+registers; an 8-row × 2-set × 2-slot register tile fed by 128-bit shared
+loads. ``fused_eval`` sums each set over its segment and a second pass
+adds the per-segment partials in segment order (no atomics), so a set's
+value depends on n and its own inputs only, not on l.
 
 Two layouts of S, one kernel: ``layout="flat"`` is the k-major ``(k, l, d)``
 buffer (the analogue of the paper's round-robin interleave), ``"loop"`` the
@@ -27,9 +32,10 @@ from repro_torch.kernels import _build
 
 #: Plain versions bound their (n, ·, k) distance block to this many elements.
 PLAIN_BLOCK_ELEMS = 1 << 26
-#: Lanes that split a row's features in the kernels' row-norm pass (TX of
-#: csrc/tile.cuh): lane t sums features t, t+16, ... and an xor butterfly
-#: joins the 16 partials.
+#: Lanes that split a row's features in the kernels' row-norm pass (TX and
+#: DC of csrc/tile.cuh: each staged 16-feature chunk gives lane t its
+#: feature t): lane t sums features t, t+16, ... and an xor butterfly joins
+#: the 16 partials.
 NORM_LANES = 16
 
 
@@ -179,15 +185,16 @@ def _check_eval_operands(V, S, lengths, d_e0, policy, layout):
     return n, l, k, d, s_set, s_slot, code
 
 
-def _launch_eval(kernel, fn, out, V, S, lengths, d_e0, n_total, policy,
-                 k_chunk, layout, rbf_gamma):
+def _launch_eval(kernel, fn, out, part, V, S, lengths, d_e0, n_total,
+                 policy, k_chunk, layout, rbf_gamma):
     n, l, k, d, s_set, s_slot, code = _check_eval_operands(
         V, S, lengths, d_e0, policy, layout)
     if l == 0:
         return
     _build.launch(
         kernel, "exemplar_eval", fn, V.data_ptr(), S.data_ptr(),
-        lengths.data_ptr(), d_e0.data_ptr(), out.data_ptr(), n, l, k, d,
+        lengths.data_ptr(), d_e0.data_ptr(), out.data_ptr(),
+        0 if part is None else part.data_ptr(), n, l, k, d,
         s_set, s_slot, int(k_chunk), float(n_total),
         -1.0 if rbf_gamma is None else float(rbf_gamma),
         _build.POLICY_CODES[policy.name], code, _build.stream_ptr(V.device))
@@ -216,8 +223,11 @@ def fused_eval(
         raise ValueError("fused_eval on CUDA tensors needs k_chunk")
     l = _as_sets(S, layout).shape[0]
     out = torch.empty(l, dtype=torch.float32, device=V.device)
-    _launch_eval("fused_eval", "repro_fused_eval", out, V, S, lengths, d_e0,
-                 n_total, policy, k_chunk, layout, rbf_gamma)
+    # the per-segment partial sums the kernel's second pass adds up
+    part = torch.empty((_build.n_segments(V.shape[0]), l),
+                       dtype=torch.float32, device=V.device)
+    _launch_eval("fused_eval", "repro_fused_eval", out, part, V, S, lengths,
+                 d_e0, n_total, policy, k_chunk, layout, rbf_gamma)
     return out
 
 
@@ -240,6 +250,6 @@ def two_pass_eval(
         raise ValueError("two_pass_eval on CUDA tensors needs k_chunk")
     W = torch.empty((S.shape[0], V.shape[0]), dtype=torch.float32,
                     device=V.device)
-    _launch_eval("two_pass_eval", "repro_two_pass_eval", W, V, S, lengths,
-                 d_e0, n_total, policy, k_chunk, "loop", rbf_gamma)
+    _launch_eval("two_pass_eval", "repro_two_pass_eval", W, None, V, S,
+                 lengths, d_e0, n_total, policy, k_chunk, "loop", rbf_gamma)
     return W

@@ -5,7 +5,14 @@ Replaces the Pallas TPU kernels ``gain_eval`` (``_gain_kernel``) and
 ``repro/kernels/marginal_gain.py``. The kernels live in
 ``csrc/marginal_gain.cu``; see the note there for what bounds them on Hopper
 (the fp32 FMA rate: a dense round is an n × m Gram product) and what the
-design does about it.
+design does about it: a fixed split of n into SEG-row segments (one per
+block, so CELF's 256-candidate re-score still fills the card), 128 (or,
+at wide d, 32) candidates staged per block, an 8 × 8 (or 8 × 2) register
+tile fed by 128-bit shared loads, V prefetched through registers into a
+double buffer. Each block writes per-segment partial sums into a workspace
+the wrapper allocates; a second pass in the same C call adds them in
+segment order and divides by ``n_total``, so a candidate's gain is the same
+bits at every m, in every batch.
 
 ONE template serves the function zoo, parameterized by the fold direction
 and an in-tile affine of the distance:
@@ -24,7 +31,7 @@ and scores the candidates against it.
 :func:`gain_eval_batched` and :func:`gain_update_eval_batched` replace the
 grid-over-B Pallas kernels (``_gain_kernel_batched``,
 ``_gain_update_kernel_batched``): B independent requests in one launch of
-the same kernel body, one request per ``blockIdx.y``, each with its own
+the same kernel body, one request per ``blockIdx.z``, each with its own
 winner and ``w_valid`` gate. A request's outputs are bit for bit those of
 its own unbatched launch (the multi-tenant engine's batched == unbatched
 contract rests on it).
@@ -159,6 +166,13 @@ def _check_gain_operands(V, C, cache, policy, fold, affine, batched=False):
             float(a), float(b))
 
 
+def _partials(B: int, n: int, m: int, device) -> torch.Tensor:
+    """The gain kernels' workspace: (B, n_segs, m) per-segment partial sums,
+    from PyTorch's caching allocator."""
+    return torch.empty((B, _build.n_segments(n), m), dtype=torch.float32,
+                       device=device)
+
+
 def gain_eval(
     V: torch.Tensor,          # (n, d) float32 or the policy's compute dtype
     C: torch.Tensor,          # (m, d) V's dtype
@@ -180,9 +194,11 @@ def gain_eval(
     gains = torch.empty(m, dtype=torch.float32, device=V.device)
     if m == 0:
         return gains
+    part = _partials(1, n, m, V.device)
     _build.launch(
         "gain_eval", "marginal_gain", "repro_gain_eval", V.data_ptr(),
-        C.data_ptr(), cache.data_ptr(), gains.data_ptr(), n, m, d,
+        C.data_ptr(), cache.data_ptr(), part.data_ptr(), gains.data_ptr(), n,
+        m, d,
         float(n_total), -1.0 if rbf_gamma is None else float(rbf_gamma),
         fmax, a, b, _build.POLICY_CODES[policy.name], code,
         _build.stream_ptr(V.device))
@@ -218,10 +234,12 @@ def gain_update_eval(
     n, d = V.shape
     m = C.shape[0]
     gains = torch.empty(m, dtype=torch.float32, device=V.device)
+    part = _partials(1, n, m, V.device)
     _build.launch(
         "gain_update_eval", "marginal_gain", "repro_gain_update_eval",
         V.data_ptr(), C.data_ptr(), cache.data_ptr(), winner.data_ptr(),
-        w_valid.data_ptr(), gains.data_ptr(), cache_out.data_ptr(), n, m, d,
+        w_valid.data_ptr(), part.data_ptr(), gains.data_ptr(),
+        cache_out.data_ptr(), n, m, d,
         float(n_total), -1.0 if rbf_gamma is None else float(rbf_gamma),
         fmax, a, b, _build.POLICY_CODES[policy.name], code,
         _build.stream_ptr(V.device))
@@ -273,10 +291,11 @@ def gain_eval_batched(
     gains = torch.empty((B, m), dtype=torch.float32, device=V.device)
     if m == 0 or B == 0:
         return gains
+    part = _partials(B, n, m, V.device)
     _build.launch(
         "gain_eval_batched", "marginal_gain", "repro_gain_eval_batched",
-        V.data_ptr(), C.data_ptr(), cache.data_ptr(), gains.data_ptr(), B, n,
-        m, d, float(n_total), -1.0 if rbf_gamma is None else float(rbf_gamma),
+        V.data_ptr(), C.data_ptr(), cache.data_ptr(), part.data_ptr(),
+        gains.data_ptr(), B, n, m, d, float(n_total), -1.0 if rbf_gamma is None else float(rbf_gamma),
         fmax, a, b, _build.POLICY_CODES[policy.name], code,
         _build.stream_ptr(V.device))
     return gains
@@ -314,12 +333,14 @@ def gain_update_eval_batched(
     gains = torch.empty((B, m), dtype=torch.float32, device=V.device)
     if B == 0:
         return gains, cache_out
+    part = _partials(B, n, m, V.device)
     # m = 0 still launches one candidate tile per request: it folds
     _build.launch(
         "gain_update_eval_batched", "marginal_gain",
         "repro_gain_update_eval_batched", V.data_ptr(), C.data_ptr(),
         cache.data_ptr(), winner.data_ptr(), w_valid.data_ptr(),
-        gains.data_ptr(), cache_out.data_ptr(), B, n, m, d, float(n_total),
+        part.data_ptr(), gains.data_ptr(), cache_out.data_ptr(), B, n, m, d,
+        float(n_total),
         -1.0 if rbf_gamma is None else float(rbf_gamma), fmax, a, b,
         _build.POLICY_CODES[policy.name], code, _build.stream_ptr(V.device))
     return gains, cache_out

@@ -26,15 +26,38 @@ from repro_torch.core.evaluator import plan_chunks
 from repro_torch.core.precision import FP32, PrecisionPolicy
 from repro_torch.kernels import exemplar_eval as _ee
 from repro_torch.kernels import marginal_gain as _mg
+from repro_torch.kernels import _build
 from repro_torch.kernels._build import LAUNCHES  # noqa: F401 — public counter
 
-#: The tile shape compiled into csrc/tile.cuh: 256 threads, each owning
-#: 4 rows × 2 columns of cells.
-BLOCK_N = 64       # V rows per tile
-BLOCK_L = 32       # sets (or candidates) per block
-CHUNK_D = 32       # V features staged per step
+#: The tile shape compiled into csrc/tile.cuh: 256 threads as 16 × 16, each
+#: owning 8 rows × RC columns; V streams in double-buffered 128 × 16 chunks.
+BLOCK_N = 128      # V rows per tile
+BLOCK_L = 32       # sets per exemplar-eval block (8 rows × 2 sets a thread)
+CHUNK_D = 16       # V features staged per step
+SEG = _build.SEG   # rows per segment of n: one segment per block
+#: Candidates per gain block: 128 (8 a thread) where they fit the shared
+#: memory budget, else 32 (2 a thread).
+GAIN_BLOCK_M = (128, 32)
 #: β — shared memory one Hopper block may opt into (227 KB).
 SMEM_BUDGET = 232448
+n_segments = _build.n_segments
+#: Segments one block walks (csrc/tile.cuh ``segs_per_block``): the largest
+#: of 8, 4, 2, 1 that still launches ``MIN_BLOCKS`` blocks.
+MAX_SPB = 8
+MIN_BLOCKS = 1024
+
+
+def segs_per_block(col_blocks: int, n_segs: int) -> int:
+    spb = MAX_SPB
+    while spb > 1 and col_blocks * -(-n_segs // spb) < MIN_BLOCKS:
+        spb //= 2
+    return spb
+
+
+def segments(n: int) -> list[tuple[int, int]]:
+    """The ``[start, stop)`` row ranges of the kernels' fixed split of n:
+    SEG rows each, the last one ragged; one empty segment at n = 0."""
+    return [(s * SEG, min(n, (s + 1) * SEG)) for s in range(n_segments(n))]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,23 +69,47 @@ class KernelConfig:
     k_chunk: int    # k slots of the block's sets staged at once
     smem_bytes: int
 
-    def grid(self, l: int) -> int:
-        # paper eq. 8, g_y = ⌈|S_multi|/b_y⌉; the n axis is a loop in the block
-        return -(-l // self.block_l)
+    def grid(self, l: int, n: int) -> tuple[int, int]:
+        """(set tiles, blocks along n): paper eq. 8's g_y = ⌈|S_multi|/b_y⌉,
+        and the fixed split of n that takes the TPU's sequential n axis,
+        ``segs_per_block`` segments a block."""
+        gx, segs = -(-l // self.block_l), n_segments(n)
+        return gx, -(-segs // segs_per_block(gx, segs))
 
 
 def _round16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def smem_bytes(k_chunk: int, d: int, policy: PrecisionPolicy) -> int:
-    """Dynamic shared memory of one block — csrc/tile.cuh ``smem_bytes``."""
+def smem_bytes(k_chunk: int, d: int, policy: PrecisionPolicy,
+               block_cols: int = BLOCK_L, winner: bool = False) -> int:
+    """Dynamic shared memory of one block — csrc/tile.cuh ``smem_bytes``:
+    k_chunk feature-major slots of ``block_cols`` columns (row stride
+    block_cols + 4), the winner (gain update), the double-buffered V chunk,
+    the column norms and the cross-row reduction buffer."""
     s = 2 if policy.name == "fp16_strict" else 4   # staged element
     a = policy.accum_dtype.itemsize
-    sd = d | 1
-    return (_round16(k_chunk * BLOCK_L * sd * s)
-            + _round16(BLOCK_N * (CHUNK_D + 1) * s)
-            + _round16(k_chunk * BLOCK_L * a) + 16 * BLOCK_L * 4)
+    return (_round16(k_chunk * d * (block_cols + 4) * s)
+            + _round16((d if winner else 0) * s)
+            + _round16(2 * CHUNK_D * (BLOCK_N + 4) * s)
+            + _round16((k_chunk * block_cols + 1) * a) + 16 * block_cols * 4)
+
+
+def gain_block_cols(d: int, policy: PrecisionPolicy,
+                    update: bool = False) -> int:
+    """Candidates per block of the gain kernels at width d (the C
+    launcher's ``gain_rc`` rule)."""
+    wide, narrow = GAIN_BLOCK_M
+    return wide if smem_bytes(1, d, policy, wide, update) <= SMEM_BUDGET \
+        else narrow
+
+
+def gain_grid(n: int, m: int, d: int, policy: PrecisionPolicy,
+              batch: int = 1, update: bool = False) -> tuple[int, int, int]:
+    """(candidate tiles, blocks along n, requests) of one gain launch."""
+    gx, segs = max(1, -(-m // gain_block_cols(d, policy, update))), \
+        n_segments(n)
+    return gx, -(-segs // segs_per_block(gx * batch, segs)), batch
 
 
 def kernel_config(k: int, d: int, policy: PrecisionPolicy,

@@ -8,6 +8,7 @@ both packages.
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -192,9 +193,112 @@ def test_kernel_config_fits_hopper_shared_memory(policy):
             if cfg.k_chunk < k:
                 assert tops.smem_bytes(cfg.k_chunk + 1, d, pol) > tops.SMEM_BUDGET
     assert tops.kernel_config(10, 100, pol).k_chunk == 10
-    assert tops.kernel_config(10, 100, pol).grid(5000) == 157
+    # (set tiles, blocks along n: 196 segments, 8 a block) at the paper's
+    # shape
+    assert tops.kernel_config(10, 100, pol).grid(5000, 50_000) == (157, 25)
     with pytest.raises(ValueError, match="too wide"):
         tops.kernel_config(10, 1 << 16, pol)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry of the gain and exemplar-eval kernels (csrc/tile.cuh)
+# ---------------------------------------------------------------------------
+
+H100_SMS = 132
+SM_SHARED_BYTES = 233472   # 228 KB of shared memory per SM
+
+
+def _header_constants() -> dict:
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    text = "".join((csrc / f).read_text() for f in
+                   ("tile.cuh", "exemplar_eval.cu"))
+    return {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_geometry_mirrors_the_cuda_header():
+    """ops' mirrors of the compiled tile shape match csrc/ (a drift would
+    make kernel_config size shared memory for another kernel)."""
+    c = _header_constants()
+    assert tops.BLOCK_N == c["TY"] * c["RN"] == 128
+    assert tops.CHUNK_D == c["DC"] == c["TX"]
+    assert tops.SEG == c["SEG"] and tops.SEG % tops.BLOCK_N == 0
+    assert tops.SMEM_BUDGET == c["SMEM_LIMIT"]
+    assert tops.BLOCK_L == c["TX"] * c["ERC"]
+    assert tops.GAIN_BLOCK_M == (c["TX"] * 8, c["TX"] * 2)
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 513, 4099, 50_000])
+def test_segments_cover_n_exactly(n):
+    """The fixed split of n: contiguous SEG-row segments covering [0, n)
+    once, their count a function of n alone (the reduction order of every
+    column rests on it)."""
+    import inspect
+
+    segs = tops.segments(n)
+    assert list(inspect.signature(tops.segments).parameters) == ["n"]
+    assert len(segs) == tops.n_segments(n) == max(1, -(-n // tops.SEG))
+    assert segs[0][0] == 0 and segs[-1][1] == n
+    for (a, b), (c, _) in zip(segs, segs[1:]):
+        assert b == c and b - a == tops.SEG
+    assert all(0 <= b - a <= tops.SEG for a, b in segs)
+    assert sum(b - a for a, b in segs) == n
+
+
+def test_launch_geometry_at_the_paper_shape():
+    """The sizing rules SEG was chosen by (n = 50 000, d = 100, fp32):
+    CELF's m = 256 re-score puts at least two blocks on each of the H100's
+    132 SMs (one segment a block), and SEG is the largest multiple of the
+    row tile that does; wide launches walk 8 segments a block; fused_eval's
+    grid (one block per SM: its k slots stay resident) leaves under 5 % of
+    its last wave idle."""
+    fp32 = tresolve("fp32")
+    n, d = 50_000, 100
+    assert tops.n_segments(n) == 196
+    gx, gy, gz = tops.gain_grid(n, 256, d, fp32)
+    assert (gx, gy, gz) == (2, 196, 1)
+    assert gx * gy * gz >= 2 * H100_SMS
+    coarser = -(-n // (tops.SEG + tops.BLOCK_N))
+    assert gx * coarser < 2 * H100_SMS
+    assert tops.gain_grid(n, n, d, fp32) == (391, 25, 1)
+    assert tops.gain_grid(8192, 8192, d, fp32, batch=64,
+                          update=True) == (64, 4, 64)
+    cfg = tops.kernel_config(10, d, fp32)
+    assert cfg.k_chunk == 10
+    assert 2 * cfg.smem_bytes > SM_SHARED_BYTES   # one block per SM
+    gx, gy = cfg.grid(5000, n)
+    assert (gx, gy) == (157, 25)
+    slots = -(-gx * gy // H100_SMS) * H100_SMS
+    assert 1 - gx * gy / slots < 0.05
+
+
+@pytest.mark.parametrize("col_blocks,n_segs,spb", [
+    (1, 1, 1), (2, 196, 1), (6, 196, 1), (157, 196, 8), (391, 196, 8),
+    (4096, 32, 8), (64, 32, 2), (40, 32, 1)])
+def test_segments_per_block_keep_narrow_launches_wide(col_blocks, n_segs,
+                                                      spb):
+    """A block walks up to 8 segments, fewer where that would launch under
+    MIN_BLOCKS blocks; every block still starts on a segment boundary and
+    the blocks cover every segment once."""
+    got = tops.segs_per_block(col_blocks, n_segs)
+    assert got == spb
+    blocks = -(-n_segs // got)
+    assert (blocks - 1) * got < n_segs <= blocks * got
+
+
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "fp16", "fp16_strict"])
+def test_gain_block_width_fits_shared_memory(policy):
+    """128 candidates a block where they fit, else 32; either way the
+    block's shared memory fits the budget up to d = 1 024."""
+    pol = tresolve(policy)
+    for update in (False, True):
+        assert tops.gain_block_cols(100, pol, update) == 128
+        for d in (1, 45, 100, 129, 400, 1024):
+            bc = tops.gain_block_cols(d, pol, update)
+            assert tops.smem_bytes(1, d, pol, bc, update) <= tops.SMEM_BUDGET
+            if bc == 32:
+                assert tops.smem_bytes(1, d, pol, 128, update) > \
+                    tops.SMEM_BUDGET
 
 
 def test_convert_config_and_state():

@@ -255,3 +255,111 @@ def test_sieve_streaming_host_equals_device_on_the_card(dev):
     assert res["host"].indices == res["device"].indices
     assert res["host"].evaluations == res["device"].evaluations
     assert res["host"].value == res["device"].value
+
+
+# ---------------------------------------------------------------------------
+# The fixed split of n: a column's bits depend on n and its own inputs only
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp32", "fp16_strict"])
+def test_gain_columns_are_the_same_bits_at_every_m(dev, policy):
+    """A candidate's gain (and its fused-update gain) is bit for bit the
+    same whether it is scored among m = 1, 33, 256, 257 candidates or all
+    n (host CELF re-scores at a varying m, device CELF 256 at a time)."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    V, _S, _lengths, cache, _ns = _problem(dev, n=3001, d=45, seed=21,
+                                           sigma=0.3, shift=0.5)
+    n = V.shape[0]
+    kw = dict(n_total=n, policy=resolve(policy))
+    w, wv = V[11].contiguous(), torch.ones((), device=dev)
+    full = mg.gain_eval(V, V, cache, **kw)
+    fullu, _ = mg.gain_update_eval(V, V, cache, w, wv, **kw)
+    rng = np.random.default_rng(3)
+    for m in (1, 33, 256, 257):
+        idx = torch.as_tensor(np.sort(rng.choice(n, size=m, replace=False)),
+                              device=dev)
+        C = V[idx].contiguous()
+        assert torch.equal(mg.gain_eval(V, C, cache, **kw), full[idx])
+        assert torch.equal(mg.gain_update_eval(V, C, cache, w, wv, **kw)[0],
+                           fullu[idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fp32", "fp16_strict"])
+def test_fused_eval_on_a_subset_equals_the_full_launch(dev, policy):
+    from repro_torch.core.evaluator import e0_distances
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import ops
+
+    V, S, lengths, _cache, _ns = _problem(dev, n=1031, l=500, k=6, d=45,
+                                          seed=22, sigma=0.3, shift=0.5)
+    p = resolve(policy)
+    d_e0 = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+    kw = dict(n_total=V.shape[0], policy=p, layout="loop",
+              k_chunk=ops.kernel_config(6, 45, p).k_chunk)
+    full = ee.fused_eval(V, S, lengths, d_e0, **kw)
+    idx = torch.as_tensor(np.sort(np.random.default_rng(4).choice(
+        500, size=97, replace=False)), device=dev)
+    assert torch.equal(ee.fused_eval(V, S[idx].contiguous(),
+                                     lengths[idx].contiguous(), d_e0, **kw),
+                       full[idx])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 64])
+def test_batched_segments_equal_unbatched(dev, B):
+    """Requests on blockIdx.z, segments on blockIdx.y: each request of a
+    batched launch over several segments and candidate tiles is bit for bit
+    its own unbatched launch."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    n, m, d = 600, 130, 45
+    V = torch.stack([_problem(dev, n=n, d=d, seed=40 + b)[0]
+                     for b in range(B)])
+    cache = torch.stack([_problem(dev, n=n, d=d, seed=40 + b)[3]
+                         for b in range(B)])
+    C, w = V[:, :m].contiguous(), V[:, 5].contiguous()
+    wv = torch.tensor([float(b % 2) for b in range(B)], device=dev)
+    kw = dict(n_total=n, policy=resolve("fp32"))
+    g = mg.gain_eval_batched(V, C, cache, **kw)
+    gu, nc = mg.gain_update_eval_batched(V, C, cache, w, wv, **kw)
+    for b in range(B):
+        assert torch.equal(g[b], mg.gain_eval(V[b], C[b], cache[b], **kw))
+        g1, nc1 = mg.gain_update_eval(V[b], C[b], cache[b], w[b], wv[b], **kw)
+        assert torch.equal(gu[b], g1) and torch.equal(nc[b], nc1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(BANDS))
+def test_segment_edge_shapes_match_plain(dev, policy):
+    """n on either side of the segment edges, against the plain versions."""
+    from repro_torch.core.evaluator import e0_distances
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    p = resolve(policy)
+    for n in (ops.SEG - 1, ops.SEG, ops.SEG + 1, 2 * ops.SEG + 1):
+        V, S, lengths, cache, ns = _problem(dev, n=n, l=37, k=5, d=45,
+                                            seed=n)
+        kw = dict(n_total=n, policy=p)
+        d_e0 = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+        kc = ops.kernel_config(5, 45, p).k_chunk
+        _band(ee.fused_eval(V, S, lengths, d_e0, k_chunk=kc, layout="loop",
+                            **kw),
+              ee.fused_eval_plain(V, S, lengths, d_e0, layout="loop", **kw),
+              BANDS[policy], ns)
+        _band(ee.two_pass_eval(V, S, lengths, d_e0, k_chunk=kc, **kw) * n,
+              ee.two_pass_eval_plain(V, S, lengths, d_e0, **kw) * n,
+              BANDS[policy], ns)
+        C, w = V[:131].contiguous(), V[3].contiguous()
+        _band(mg.gain_eval(V, C, cache, **kw),
+              mg.gain_eval_plain(V, C, cache, **kw), BANDS[policy], ns)
+        wv = torch.ones((), device=dev)
+        g, nc = mg.gain_update_eval(V, C, cache, w, wv, **kw)
+        gp, ncp = mg.gain_update_eval_plain(V, C, cache, w, wv, **kw)
+        _band(g, gp, BANDS[policy], ns)
+        _band(nc, ncp, BANDS[policy], ns)
