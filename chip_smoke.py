@@ -16,9 +16,16 @@ Phases (any failure exits non-zero before the result lines):
    each comparison must also catch a planted 1 % error. The batched gain
    kernels at B = 1, 3 and 8 with a ``w_valid`` that mixes 0 and 1, and
    each request of a batched launch bit for bit equal to its own unbatched
-   launch. The sieve kernels at r ∈ {1, 35, 65} rows and ragged n up to
-   50 000, both templates, and the batched one at P ∈ {1, 3, 16}, each
-   partition bit for bit its unbatched launch. The gain and exemplar-eval
+   launch. The sieve kernels at r ∈ {1, 35, 65} rows and n at the edges
+   of their split of n (1, 3, a block's span at small n and one past it,
+   8 spans + 1, 257, 4 097, 4 099, 50 000, and 8 load groups and one
+   past), both templates, with and without the seed as its
+   own operand; bit for bit, a row's gain at r = 1 and 35 (wherever it
+   sits in the table, 16-byte aligned or not) against the r = 65 launch,
+   and the ``seed=`` launch against the launch on the concatenated table;
+   the batched one at P ∈ {1, 3, 16}, each partition bit for bit its
+   unbatched launch on its own slice (off 16 bytes at n = 4 099) and on an
+   aligned copy. The gain and exemplar-eval
    kernels at n on either side of their segment edges (SEG − 1, SEG,
    SEG + 1, 2·SEG + 1) and at n = 50 000, all four policies; then their
    column invariance, bit for bit: ``gain_eval`` / ``gain_update_eval`` at
@@ -48,6 +55,11 @@ Phases (any failure exits non-zero before the result lines):
    noisy vectors, each partition of its batched engine bit for bit a
    standalone engine fed the same sub-stream, and a certified merge.
    Launches of the two sieve kernels are counted over this phase only.
+   Then, reported and not gated: whether the whole stream's members equal
+   those of the sieve kernel's previous order of additions and, if not,
+   the first element whose accept decision that order flips, with the two
+   orders' gains (``previous_order_gains`` replays the old order in plain
+   PyTorch).
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -57,13 +69,17 @@ Phases (any failure exits non-zero before the result lines):
    the same table), and the least time the card could take (its bound).
    The batched gain kernels are timed at B = 64, n = m = 8 192, d = 100;
    the sieve kernels at the streaming phase's tables: (35, 50 000),
-   (65, 50 000) and (16, 35, 50 000). ``fused_eval``, ``gain_eval`` and
+   (65, 50 000) and (16, 35, 50 000), each twice: warm (back-to-back
+   launches, the table in the 50 MB L2 where it fits) and cold (128 MB
+   read through the L2 before each launch, left out of the time); the
+   HBM bound is a bound on the cold time. ``fused_eval``, ``gain_eval`` and
    ``gain_update_eval`` are also timed at bf16 and fp16 (``bf16_ms``,
    ``fp16_ms``).
 
 5. Steady-state wall times of the main path's calls, and profiles (device
    busy time by kernel against wall time) of greedy in both plans and of a
-   2 048-element window of the device sieve.
+   2 048-element window of the device sieve, with each top kernel's
+   launches and time per launch.
 
 The last three lines are the card's name and power limit, a JSON object
 listing each kernel, and ``{"ok": true, "device": ...}``.
@@ -123,15 +139,23 @@ KERNELS = {
 MAIN_KERNELS = ("fused_eval", "two_pass_eval", "gain_eval", "gain_update_eval")
 SERVING_KERNELS = ("gain_eval_batched", "gain_update_eval_batched")
 STREAM_KERNELS = ("sieve_gain_eval", "sieve_gain_eval_batched")
-#: Each kernel's time before the two Gram kernels split n into segments
-#: (the earlier times of PERF.md's kernel table: this script on an H100
-#: 80GB HBM3 at 700 W), printed beside this run's; ``gain_eval`` also has
-#: its m = 256 re-score (``top256``).
+#: Each kernel's time before its split of n (the earlier times of PERF.md's
+#: kernel table: this script on an H100 80GB HBM3 at 700 W; the Gram
+#: kernels before their segments, the sieve kernels before their
+#: clusters), printed beside this run's; ``gain_eval`` also has its m = 256
+#: re-score (``top256``).
 EARLIER_MS = {"fused_eval": 100.33, "two_pass_eval": 100.17,
               "gain_eval": 35.88, "gain_eval top256": 5.73,
               "gain_update_eval": 38.57, "gain_eval_batched": 61.01,
               "gain_update_eval_batched": 64.31,
-              "sieve_gain_eval": 0.00771, "sieve_gain_eval_batched": 0.0454}
+              "sieve_gain_eval": 0.00767, "sieve_gain_eval_batched": 0.0449}
+#: The whole stream's members (``sieve_streaming(mode="device")`` over
+#: ``blobs(50 000, 100, centers=16)``, k = 10, ε = 0.1, seed 0) under the
+#: sieve kernel's previous order of additions (H100): reported beside
+#: this run's, not gated, since another order of fp32 additions may flip a
+#: tie.
+EARLIER_STREAM_MEMBERS = [10377, 49155, 34451, 15123, 7707, 34486, 12954,
+                          26023, 24607, 29329]
 #: The yardstick each kernel is timed beside (``library_ms``).
 LIBRARY = {name: "cuBLAS Gram" for name in MAIN_KERNELS + SERVING_KERNELS}
 LIBRARY.update({name: "torch.sum yardstick" for name in STREAM_KERNELS})
@@ -452,27 +476,61 @@ def sieve_operands(lead, r, n, fold, seed):
     return t(T), t(d)
 
 
-def phase_kernels_sieve(check: Checker) -> int:
+def phase_kernels_sieve(check: Checker) -> None:
     """The sieve kernels against their plain versions (fp32 operands, both
-    templates, ragged n), and each partition of a batched launch against
-    its own unbatched launch (bit for bit). Returns the number of
-    partitions compared bit for bit."""
+    templates) at n on the edges of their split of n, with and without the
+    seed operand; then bit for bit: a row's gain at r = 1 and 35 against
+    the r = 65 launch, wherever the row sits and whatever its alignment;
+    the ``seed=`` launch against the launch on ``cat([seed, T])``; each
+    partition of a batched launch against its unbatched launch on its own
+    slice and on an aligned copy."""
     import torch
 
     from repro_torch.core.functions import SIM_ALPHA, SIM_BETA
     from repro_torch.kernels import marginal_gain as mg
 
     affine = {"min": None, "max": (SIM_ALPHA, SIM_BETA)}
-    for r in (1, 35, 65):
-        for n in (1, 257, 4099, 50_000):
-            for fold, aff in affine.items():
-                T, d = sieve_operands((), r, n, fold, seed=r * n)
-                kw = dict(n_total=n, fold=fold, affine=aff)
-                got = mg.sieve_gain_eval(T, d, **kw)
+    S, G = mg.sieve_span(1), mg.SIEVE_GROUP
+    same = {"rows": 0, "seed": 0, "partitions": 0}
+
+    def equal(key, what, got, ref):
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = int((got != ref).sum())
+            raise AssertionError(f"sieve kernel [{what}]: {bad} of "
+                                 f"{got.numel()} gains differ")
+        same[key] += got.numel()
+
+    # a block's span S at small n, the first n whose span grows a step, and
+    # where a block loads its span in two groups of G columns
+    for n in sorted({1, 3, S - 1, S, S + 1, 8 * S + 1, 257, 4097, 4099,
+                     50_000, 8 * G, 8 * G + 1}):
+        for fold, aff in affine.items():
+            T, d = sieve_operands((), 65, n, fold, seed=n)
+            kw = dict(n_total=n, fold=fold, affine=aff)
+            full = mg.sieve_gain_eval(T, d, **kw)
+            check("sieve_gain_eval", full,
+                  mg.sieve_gain_eval_plain(T, d, **kw), "fp32",
+                  f"r=65 n={n} {fold}")
+            for r in (1, 35):
+                got = mg.sieve_gain_eval(T[:r], d, **kw)
                 check("sieve_gain_eval", got,
-                      mg.sieve_gain_eval_plain(T, d, **kw), "fp32",
+                      mg.sieve_gain_eval_plain(T[:r], d, **kw), "fp32",
                       f"r={r} n={n} {fold}")
-    identical = 0
+                equal("rows", f"r={r} n={n} {fold}", got, full[:r])
+            for j in (1, 3, 64):   # off 16 bytes where n % 4 != 0, and a copy
+                for row in (T[j:j + 1], T[j:j + 1].clone()):
+                    equal("rows", f"row {j} alone n={n} {fold}",
+                          mg.sieve_gain_eval(row, d, **kw), full[j:j + 1])
+            equal("rows", f"rows 30..64 n={n} {fold}",
+                  mg.sieve_gain_eval(T[30:], d, **kw), full[30:])
+            seed = T[7].clone()
+            got = mg.sieve_gain_eval(T[:34], d, seed=seed, **kw)
+            check("sieve_gain_eval", got,
+                  mg.sieve_gain_eval_plain(T[:34], d, seed=seed, **kw), "fp32",
+                  f"seed + 34 rows n={n} {fold}")
+            equal("seed", f"seed + 34 rows n={n} {fold}", got,
+                  mg.sieve_gain_eval(torch.cat([seed[None], T[:34]]), d, **kw))
     for P in (1, 3, 16):
         for n in (4099, 50_000):
             for fold, aff in affine.items():
@@ -483,15 +541,28 @@ def phase_kernels_sieve(check: Checker) -> int:
                 check("sieve_gain_eval_batched", got,
                       mg.sieve_gain_eval_batched_plain(T, d, **kw), "fp32",
                       tag)
+                for p in range(P):  # T[p] is off 16 bytes for odd p at 4 099
+                    for Tp in (T[p], T[p].clone()):
+                        equal("partitions", f"{tag} partition {p}",
+                              mg.sieve_gain_eval(Tp, d[p], **kw), got[p])
+                seed, caches = T[0, 0].clone(), T[:, 1:].contiguous()
+                gots = mg.sieve_gain_eval_batched(caches, d, seed=seed, **kw)
+                check("sieve_gain_eval_batched", gots,
+                      mg.sieve_gain_eval_batched_plain(caches, d, seed=seed,
+                                                       **kw), "fp32",
+                      f"{tag} seed")
+                equal("seed", f"{tag} seed", gots, mg.sieve_gain_eval_batched(
+                    torch.cat([seed.expand(P, 1, n), caches], dim=1), d, **kw))
                 for p in range(P):
-                    one = mg.sieve_gain_eval(T[p], d[p], **kw)
-                    torch.cuda.synchronize()
-                    if not torch.equal(one, got[p]):
-                        raise AssertionError(
-                            f"sieve_gain_eval_batched [{tag}]: partition {p} "
-                            f"differs from its unbatched launch")
-                    identical += 1
-    return identical
+                    equal("partitions", f"{tag} seed partition {p}",
+                          mg.sieve_gain_eval(caches[p], d[p], seed=seed, **kw),
+                          gots[p])
+    log(f"    sieve kernels: n at the split's edges (span {S} up to n = "
+        f"{8 * S}, load groups of {G} columns) in band, both templates, "
+        f"with and without seed=; bit for "
+        f"bit: {same['rows']} row gains against the r = 65 launch, "
+        f"{same['seed']} seed= gains against the concatenated launch, "
+        f"{same['partitions']} batched gains against unbatched launches")
 
 
 def phase_invariance(N=50_000, L=5_000, K=10, DIM=100) -> dict:
@@ -869,8 +940,8 @@ def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
                     PER=2048):
     """Streaming at the paper's size (ground set ``blobs(N, DIM,
     centers=16)``, k = K, ε = EPS, backend ``cuda``). Returns ``(walls,
-    launches per sub-phase)``; the caller reads ``ops.LAUNCHES`` over the
-    whole phase."""
+    the function, the whole stream's result)``; the caller reads
+    ``ops.LAUNCHES`` over the whole phase."""
     import asyncio
 
     import numpy as np
@@ -1027,7 +1098,110 @@ def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
         f"{per_ms:.3f} ms against one ({P * 32}, {N}) product {one_ms:.3f} "
         f"ms; same bits: {torch.equal(one, per)}")
     log(f"    launches per sub-phase: {json.dumps(sub)}")
-    return walls
+    return walls, f, full
+
+
+def previous_order_gains(caches, dvec, *, seed, n_total=None, fold="min",
+                         score_affine=None):
+    """The sieve gains of ``cat([seed, caches])`` in the order of fp32
+    additions of the sieve kernel before its split of n, in plain PyTorch:
+    one 256-thread block per row, thread t adding columns t, t + 256, … in
+    order, then a shared-memory tree (s = 128, 64, …, 1), then one true
+    division. Each step is one IEEE fp32 operation, so the bits are that
+    kernel's. A diagnostic only: it names the element whose accept
+    decision the new order flips."""
+    import torch
+
+    T = torch.cat([seed[None], caches])
+    n = T.shape[-1]
+    if fold == "min":
+        g = torch.clamp_min(T - dvec[None, :], 0.0)
+    else:
+        a, b = score_affine
+        g = torch.clamp_min((a + b * dvec)[None, :] - T, 0.0)
+    J = -(-n // 256)
+    G = torch.nn.functional.pad(g, (0, J * 256 - n)).view(T.shape[0], J, 256)
+    acc = torch.zeros_like(G[:, 0])
+    for j in range(J):
+        acc = acc + G[:, j]
+    s = 128
+    while s:
+        acc[:, :s] += acc[:, s:2 * s]
+        s //= 2
+    return acc[:, 0] / torch.tensor(float(n if n_total is None else n_total),
+                                    device=acc.device)
+
+
+def first_flip(f, K, EPS, order, block=64) -> str:
+    """Step the device sieve over ``order`` twice in lockstep, scoring with
+    the kernel and with :func:`previous_order_gains`, and name the first
+    element after which the two tables' sizes, exponents or live slots
+    differ, with both orders' gains of the seed and of the slots whose
+    accept decision differs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import functions as fx
+    from repro_torch.core import streaming as st
+    from repro_torch.kernels import ops
+
+    eng = st.make_sieve_engine(f, K, EPS, mode="device", block_size=block)
+    spec, c = eng.spec, eng._c
+    fold, affine = fx.kernel_template(f.spec)
+    kernel_gains = ops.sieve_gains
+    yes = torch.ones((), dtype=torch.bool, device=f.device)
+
+    def step(state, idx, d, gains_of):
+        ops.sieve_gains = gains_of
+        try:
+            return st._element_step(spec, c, state, idx, d, yes)[0]
+        finally:
+            ops.sieve_gains = kernel_gains
+
+    def clone(x):
+        return st.SieveState(*(t.clone() for t in x))
+
+    def differ(x, y):
+        return ((x.sizes != y.sizes).any() | (x.slot_exp != y.slot_exp).any()
+                | (x.active != y.active).any())
+
+    a = st.init_state(f.n, spec, f.device)
+    b = st.init_state(f.n, spec, f.device)
+    for s in range(0, len(order), block):
+        ib = np.asarray(order[s:s + block])
+        ids = torch.as_tensor(ib.astype(np.int32), device=f.device)
+        dmat = eng._distance_rows(eng._stage_block(
+            f.V[torch.as_tensor(ib, device=f.device)], len(ib)))
+        a0, b0 = clone(a), clone(b)
+        flags = []
+        for j in range(len(ib)):
+            a = step(a, ids[j], dmat[j], kernel_gains)
+            b = step(b, ids[j], dmat[j], previous_order_gains)
+            flags.append(differ(a, b))
+        hit = torch.stack(flags).nonzero()
+        if not len(hit):
+            continue
+        e = int(hit[0])
+        a, b = a0, b0
+        for j in range(e):
+            a = step(a, ids[j], dmat[j], kernel_gains)
+            b = step(b, ids[j], dmat[j], previous_order_gains)
+        kw = dict(seed=c.seed, fold=fold, score_affine=affine)
+        g_new = kernel_gains(a.caches, dmat[e], **kw).cpu()
+        g_old = previous_order_gains(b.caches, dmat[e], **kw).cpu()
+        a = step(a, ids[e], dmat[e], kernel_gains)
+        b = step(b, ids[e], dmat[e], previous_order_gains)
+        slots = (a.sizes != b.sizes).nonzero().flatten().tolist()
+        grid = not (torch.equal(a.slot_exp, b.slot_exp)
+                    and torch.equal(a.active, b.active))
+        gains = "; ".join(
+            f"{'seed' if r == 0 else f'slot {r - 1}'} {float(g_new[r]):.9g} "
+            f"vs {float(g_old[r]):.9g} (gap {float(g_new[r] - g_old[r]):.3e})"
+            for r in [0] + [1 + q for q in slots])
+        return (f"stream position {s + e}, element {int(ib[e])}: accept "
+                f"differs in slots {slots}, grid differs {grid}; gains, this "
+                f"kernel vs the previous order: {gains}")
+    return "no accept decision differs over the whole stream"
 
 
 def cuda_times(fn, reps: int, warmup: int = 2) -> list:
@@ -1051,24 +1225,60 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(cuda_times(fn, reps, warmup))
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call (ms): the durations of the kernels ``fn``
-    launches, from the profiler, over ``reps`` calls after a warm-up. For
-    kernels of a few µs, CUDA events around one call also time the host's
-    launch of it, while the card waits."""
+def l2_flush(dev):
+    """A call that reads 128 MB through the 50 MB L2 (``torch.amax``: the
+    lines it leaves are clean, so the next call's misses write nothing
+    back), after which the next call finds its operands in device
+    memory."""
+    import torch
+
+    buf = torch.ones(32 << 20, device=dev)
+    return lambda: torch.amax(buf)
+
+
+def _device_times(calls, reps: int, tries: int = 3) -> dict:
+    """Device time (µs) by kernel name over ``reps`` rounds of ``calls``
+    (profiled again, up to ``tries`` times, while the profiler reports no
+    device activity at all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for call in calls:
+                    call()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0}
+        if times:
+            break
+    return times
+
+
+def device_ms(fn, reps: int, flush=None) -> float:
+    """Device time per call (ms): the durations of the kernels ``fn``
+    launches, from the profiler, over ``reps`` calls after a warm-up. For
+    kernels of a few µs, CUDA events around one call also time the host's
+    launch of it, while the card waits. ``flush`` (:func:`l2_flush`) runs
+    before each call; its kernels, which must not share a name with
+    ``fn``'s, are left out of the time."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
+    if flush is None:
+        total = sum(_device_times([fn], reps).values())
+    else:
+        skip = set(_device_times([flush], 3))
+        if not skip or skip & set(_device_times([fn], 3)):
+            raise AssertionError(f"the L2 flush's kernels {sorted(skip)} are "
+                                 f"missing or shared with the timed call")
+        total = sum(t for key, t in _device_times([flush, fn], reps).items()
+                    if key not in skip)
     if total <= 0:
         raise AssertionError("the profiler recorded no device time")
     return total / 1e3 / reps
@@ -1275,45 +1485,62 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
         library_ms=bmm_ms,
         bound=bound(batched_flops + 2.0 * Bq * Nq * DIM,
                     batched_in + 4 * Bq * (DIM + 1) + 4 * 2 * Bq * Nq))
-    # the sieve kernels at the streaming phase's tables: the sieve table's
-    # 34 slots and salsa's 64, each with the seed row, and 16 partitions
-    # (µs-scale kernels: times are device times from the profiler, the
-    # CUDA-event times of single calls beside them)
-    def sieve_row(kernel, plain, table, flops, nbytes):
+    # the sieve kernels at the streaming phase's tables: the seed and the
+    # sieve table's 34 slots, the seed and salsa's 64, and 16 partitions of
+    # the first (µs-scale kernels: times are device times from the
+    # profiler, the CUDA-event times of single calls beside them). Warm:
+    # back-to-back calls, the table in the 50 MB L2 where it fits; cold:
+    # 128 MB read through the L2 before each call. The bound, by bytes of
+    # device memory, is a bound on the cold time.
+    flush = l2_flush(dev)
+
+    def sieve_row(kernel, plain, library, flops, nbytes):
         ev = kernel_ms(kernel, 50)
         return dict(
             ms=device_ms(kernel, 50), plain_ms=device_ms(plain, 50),
-            library_ms=device_ms(lambda: torch.sum(table, dim=-1), 50),
+            library_ms=device_ms(library, 50),
+            cold_ms=device_ms(kernel, 50, flush),
+            cold_plain_ms=device_ms(plain, 50, flush),
+            cold_library_ms=device_ms(library, 50, flush),
             bound=bound(flops, nbytes), event_ms=ev["ms"],
             event_ms_q1=ev["ms_q1"], event_ms_q3=ev["ms_q3"],
             event_plain_ms=cuda_ms(plain, 50),
-            event_library_ms=cuda_ms(lambda: torch.sum(table, dim=-1), 50))
+            event_library_ms=cuda_ms(library, 50))
 
-    for r in (35, 65):
-        T, d = sieve_operands((), r, N, "min", seed=r)
-        kws = dict(n_total=N)
+    for r in (34, 64):
+        T, d = sieve_operands((), r + 1, N, "min", seed=r)
+        seed, T = T[0].clone(), T[1:].contiguous()
+        kws = dict(n_total=N, seed=seed)
         agree("sieve_gain_eval", mg.sieve_gain_eval(T, d, **kws),
-              mg.sieve_gain_eval_plain(T, d, **kws), f"({r}, {N})")
+              mg.sieve_gain_eval_plain(T, d, **kws), f"seed + ({r}, {N})")
+        # the yardstick: one torch.sum over the same rows, seed in front
+        full = torch.cat([seed[None], T])
         row = sieve_row(lambda: mg.sieve_gain_eval(T, d, **kws),
-                        lambda: mg.sieve_gain_eval_plain(T, d, **kws), T,
-                        3.0 * r * N, 4 * (r * N + N + r))
-        if r == 35:
+                        lambda: mg.sieve_gain_eval_plain(T, d, **kws),
+                        lambda: torch.sum(full, dim=-1),
+                        3.0 * (r + 1) * N, 4 * ((r + 1) * N + N + r + 1))
+        if r == 34:
             rows["sieve_gain_eval"] = row
         else:  # salsa's table, beside the sieve table's row
             rows["sieve_gain_eval"].update({
                 f"r65_{k}": v[0] if k == "bound" else v
                 for k, v in row.items() if k in ("ms", "plain_ms",
-                                                 "library_ms", "bound",
+                                                 "library_ms", "cold_ms",
+                                                 "cold_library_ms", "bound",
                                                  "event_ms")})
     T, d = sieve_operands((16,), 35, N, "min", seed=16)
-    kws = dict(n_total=N)
+    seed, T = T[0, 0].clone(), T[:, 1:].contiguous()
+    kws = dict(n_total=N, seed=seed)
     agree("sieve_gain_eval_batched", mg.sieve_gain_eval_batched(T, d, **kws),
-          mg.sieve_gain_eval_batched_plain(T, d, **kws), f"(16, 35, {N})")
+          mg.sieve_gain_eval_batched_plain(T, d, **kws),
+          f"seed + (16, 34, {N})")
+    full = torch.cat([seed.expand(16, 1, N), T], dim=1)
     rows["sieve_gain_eval_batched"] = sieve_row(
         lambda: mg.sieve_gain_eval_batched(T, d, **kws),
-        lambda: mg.sieve_gain_eval_batched_plain(T, d, **kws), T,
-        3.0 * 16 * 35 * N, 4 * (16 * 35 * N + 16 * N + 16 * 35))
-    del T, d
+        lambda: mg.sieve_gain_eval_batched_plain(T, d, **kws),
+        lambda: torch.sum(full, dim=-1),
+        3.0 * 16 * 35 * N, 4 * (16 * 34 * N + N + 16 * N + 16 * 35))
+    del T, d, full, flush
     for name, r in rows.items():
         r["main_rel_err"] = rel[name]
     for key, ms in extra_times.items():
@@ -1381,18 +1608,22 @@ def phase_end_to_end() -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         # device-side events only: an ATen op's own entry repeats the
         # device time of the kernels it launched
-        by_kernel = sorted(((e.self_device_time_total / 1e3, e.key)
+        by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                             for e in prof.key_averages()
                             if e.device_type == DeviceType.CUDA
                             and e.self_device_time_total > 0), reverse=True)
-        busy = sum(t for t, _ in by_kernel)
+        busy = sum(t for t, _, _ in by_kernel)
         out[f"{name}_profiled_wall_ms"] = wall_ms
         out[f"{name}_device_busy_ms"] = busy
         log(f"    profile {name} k={K}: wall {wall_ms:.1f} ms (profiler on), "
             f"device busy {busy:.1f} ms" + (
                 "" if busy else " (no device time in the trace: not measured)"))
-        for t, key in by_kernel[:4]:
-            log(f"      {t:9.3f} ms  {key[:90]}")
+        for t, count, key in by_kernel[:6]:
+            log(f"      {t:9.3f} ms  {count:6d} x {t / count * 1e3:8.2f} us  "
+                f"{key[:80]}")
+        for t, count, key in by_kernel:   # the sieve kernel's in-stream time
+            if "sieve_gain_kernel" in key:
+                out[f"{name}_sieve_kernel_us_per_launch"] = t / count * 1e3
     return out
 
 
@@ -1431,13 +1662,12 @@ def main() -> int:
     check = Checker()
     phase_kernels(check)
     identical = phase_kernels_batched(check)
-    identical_sieve = phase_kernels_sieve(check)
+    phase_kernels_sieve(check)
     phase_segment_edges(check)
     report_kernel_checks(check)
     phase_invariance()
     log(f"    batched kernels: {identical} requests bit for bit equal to "
-        f"their unbatched launches (gains and folded cache); "
-        f"{identical_sieve} sieve partitions bit for bit equal to theirs")
+        f"their unbatched launches (gains and folded cache)")
 
     log("[3] main path at the paper's size")
     ops.LAUNCHES.clear()
@@ -1451,10 +1681,22 @@ def main() -> int:
         "services)")
     t0 = time.perf_counter()
     ops.LAUNCHES.clear()
-    walls.update(phase_streaming())
+    stream_walls, fstream, full = phase_streaming()
+    walls.update(stream_walls)
     stream_launches = dict(ops.LAUNCHES)
     log(f"    launches: {json.dumps(stream_launches)}; phase "
         f"{time.perf_counter() - t0:.1f} s")
+    same_members = full.indices == EARLIER_STREAM_MEMBERS
+    log(f"    whole-stream members equal the previous order's "
+        f"{EARLIER_STREAM_MEMBERS} (reported, not gated): {same_members}")
+    if not same_members:
+        from repro_torch.core.optimizers import _stream
+
+        t1 = time.perf_counter()
+        log(f"    first flipped element: "
+            f"{first_flip(fstream, 10, 0.1, _stream(fstream, None, 0))} "
+            f"({time.perf_counter() - t1:.1f} s)")
+    del fstream
     # each path's own launches: the main path's four kernels, the serving
     # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}

@@ -251,22 +251,23 @@ def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
     seed = c.seed
 
     # singleton gain Δ(e | ∅) — the grid anchor m = max singleton seen. The
-    # cuda backend scores the whole table in ONE kernel launch up front: row
-    # 0 is the seed (the empty-set cache, whose gain IS the singleton), rows
-    # 1: are the pre-rebuild sieve caches. A slot the rebuild below claims
-    # is reset to exactly the seed, so its post-rebuild gain is the
-    # singleton — ``where(claim, single, ...)`` recovers the post-rebuild
-    # gains without a second launch.
+    # cuda backend scores the seed and the table in ONE kernel launch up
+    # front: output row 0 is the seed (the empty-set cache, whose gain IS
+    # the singleton; the kernel reads it through its own pointer, so the
+    # table is never copied to put it in front), rows 1: are the
+    # pre-rebuild sieve caches. A slot the rebuild below claims is reset to
+    # exactly the seed, so its post-rebuild gain is the singleton —
+    # ``where(claim, single, ...)`` recovers the post-rebuild gains without
+    # a second launch.
     use_kernel = spec.backend != "torch"
     if use_kernel:
         from repro_torch.kernels import ops as kops
 
         fold, affine = fx.kernel_template(fn)
-        table = torch.cat([seed.expand(*caches.shape[:-2], 1, seed.shape[0]),
-                           caches], dim=-2)
-        gains_of = kops.sieve_gains_batched if table.ndim == 3 \
+        gains_of = kops.sieve_gains_batched if caches.ndim == 3 \
             else kops.sieve_gains
-        g_all = gains_of(table, dvec, fold=fold, score_affine=affine)
+        g_all = gains_of(caches, dvec, seed=seed, fold=fold,
+                         score_affine=affine)
         single, gains_pre = g_all[..., 0], g_all[..., 1:]
     else:
         single = _mean_rows(

@@ -63,9 +63,9 @@ SIGNATURES = {
                                            _I, _P],
     },
     "sieve_gain": {
-        "repro_sieve_gain_eval": [_P, _P, _P, _I, _I, _F, _I, _F, _F, _P],
-        "repro_sieve_gain_eval_batched": [_P, _P, _P, _I, _I, _I, _F, _I, _F,
-                                          _F, _P],
+        "repro_sieve_gain_eval": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _F, _P],
+        "repro_sieve_gain_eval_batched": [_P, _P, _P, _P, _I, _I, _I, _F, _I,
+                                          _F, _F, _P],
     },
 }
 

@@ -41,8 +41,12 @@ streaming engine's Pallas kernels (``_sieve_gain_kernel``,
 ``_sieve_gain_kernel_batched``): the same min/max template, scored for
 every row of a sieve-cache table against one stream element's distance row
 (no Gram product: the distances come in precomputed). They live in
-``csrc/sieve_gain.cu``, whose note says what bounds them (device memory,
-and at the stream's one launch per element, the launch itself).
+``csrc/sieve_gain.cu``, whose note says what bounds them (device memory)
+and what the design does about it: each row is a thread-block cluster of
+8 blocks over a fixed split of n (:func:`sieve_span`), whose partials
+block rank 0 adds in rank order through distributed shared memory, so a
+row's gain is the same bits in every launch. The function's seed row comes
+in through its own pointer (``seed=``) and scores as row 0.
 """
 from __future__ import annotations
 
@@ -351,10 +355,38 @@ def gain_update_eval_batched(
 # ---------------------------------------------------------------------------
 
 
+#: csrc/sieve_gain.cu: each row is one thread-block cluster of
+#: ``SIEVE_CLUSTER`` blocks along n; a block's span is a whole number of
+#: steps of ``SIEVE_STEP`` columns (256 threads × 4 columns), and a block
+#: loads ``SIEVE_GROUP`` columns of it at once (4 steps).
+SIEVE_CLUSTER = 8
+SIEVE_STEP = 1024
+SIEVE_GROUP = 4 * SIEVE_STEP
+
+
+def sieve_span(n: int) -> int:
+    """Columns of n one block of a row's cluster takes — csrc/sieve_gain.cu
+    ``sieve_span``: ceil(n / 8) rounded up to a whole step, a function of n
+    alone. Block c takes ``[c·span, (c + 1)·span) ∩ [0, n)``."""
+    per = -(-n // SIEVE_CLUSTER)
+    return -(-per // SIEVE_STEP) * SIEVE_STEP
+
+
+def _with_seed(T, seed):
+    """The table with the seed row in front of every partition's rows."""
+    if seed is None:
+        return T
+    return torch.cat([seed.expand(*T.shape[:-2], 1, T.shape[-1]), T], dim=-2)
+
+
 def sieve_gain_eval_plain(T, dvec, *, n_total: int, fold: str = "min",
-                          affine: Optional[tuple] = None) -> torch.Tensor:
-    """Plain version of :func:`sieve_gain_eval` — (r,) float32. The affine
-    rounds as the kernel's does: a product, then a sum."""
+                          affine: Optional[tuple] = None,
+                          seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`sieve_gain_eval` — (r,) float32, or
+    (r + 1,) with ``seed``: the gains of the table with the seed row in
+    front. The affine rounds as the kernel's does: a product, then a
+    sum."""
+    T = _with_seed(T, seed)
     if fold == "min":
         g = torch.clamp_min(T - dvec[None, :], 0.0)
     else:
@@ -364,10 +396,13 @@ def sieve_gain_eval_plain(T, dvec, *, n_total: int, fold: str = "min",
 
 
 def sieve_gain_eval_batched_plain(T, dvec, *, n_total: int, fold: str = "min",
-                                  affine: Optional[tuple] = None
+                                  affine: Optional[tuple] = None,
+                                  seed: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
-    """Plain version of :func:`sieve_gain_eval_batched` — (P, r) float32:
-    each partition's row is its own :func:`sieve_gain_eval_plain` call."""
+    """Plain version of :func:`sieve_gain_eval_batched` — (P, r) float32,
+    or (P, r + 1) with ``seed`` in front of every partition's rows: each
+    partition's row is its own :func:`sieve_gain_eval_plain` call."""
+    T = _with_seed(T, seed)
     out = torch.empty(T.shape[:2], dtype=torch.float32, device=T.device)
     for p in range(T.shape[0]):
         out[p] = sieve_gain_eval_plain(T[p], dvec[p], n_total=n_total,
@@ -375,7 +410,7 @@ def sieve_gain_eval_batched_plain(T, dvec, *, n_total: int, fold: str = "min",
     return out
 
 
-def _check_sieve_operands(T, dvec, fold, affine, batched):
+def _check_sieve_operands(T, dvec, fold, affine, batched, seed=None):
     nd = 3 if batched else 2
     if T.ndim != nd or dvec.shape != (*T.shape[:-2], T.shape[-1]):
         want = "T (P, r, n) and dvec (P, n)" if batched \
@@ -388,6 +423,14 @@ def _check_sieve_operands(T, dvec, fold, affine, batched):
         raise ValueError("T and dvec must be float32")
     if not (T.is_contiguous() and dvec.is_contiguous()):
         raise ValueError("T and dvec must be contiguous")
+    if seed is not None:
+        if seed.shape != T.shape[-1:]:
+            raise ValueError(f"seed must be one ({T.shape[-1]},) row, got "
+                             f"{tuple(seed.shape)}")
+        if seed.dtype != torch.float32 or not seed.is_contiguous():
+            raise ValueError("seed must be a contiguous float32 row")
+        if seed.device != T.device:
+            raise ValueError(f"seed is on {seed.device}, T on {T.device}")
     if fold not in ("min", "max"):
         raise ValueError(f"fold must be 'min' or 'max', got {fold!r}")
     if fold == "max" and affine is None:
@@ -403,24 +446,31 @@ def sieve_gain_eval(
     n_total: int,
     fold: str = "min",
     affine: Optional[tuple] = None,
+    seed: Optional[torch.Tensor] = None,   # (n,) float32, scored as row 0
 ) -> torch.Tensor:
-    """Per-row gains of a cache table against one stream element — (r,).
+    """Per-row gains of a cache table against one stream element — (r,),
+    or (r + 1,) with ``seed``, whose gain (the singleton gain Δ(e | ∅))
+    comes first: the gains of the table with the seed row in front, read
+    through the seed's own pointer with no copy of the table.
 
-    Rows are arbitrary caches (live sieves, stale slots, or the seed, whose
-    gain is the singleton gain Δ(e | ∅)); callers mask rows downstream. The
-    kernel masks the ragged n edge itself: no padding columns.
+    Rows are arbitrary caches (live sieves, stale slots, or the seed);
+    callers mask rows downstream. The kernel masks the ragged n edge
+    itself: no padding columns.
     """
     if not T.is_cuda:
         return sieve_gain_eval_plain(T, dvec, n_total=n_total, fold=fold,
-                                     affine=affine)
-    fmax, a, b = _check_sieve_operands(T, dvec, fold, affine, batched=False)
+                                     affine=affine, seed=seed)
+    fmax, a, b = _check_sieve_operands(T, dvec, fold, affine, batched=False,
+                                       seed=seed)
     r, n = T.shape
-    out = torch.empty(r, dtype=torch.float32, device=T.device)
-    if r == 0:
+    rows = r + (seed is not None)
+    out = torch.empty(rows, dtype=torch.float32, device=T.device)
+    if rows == 0:
         return out
     _build.launch(
         "sieve_gain_eval", "sieve_gain", "repro_sieve_gain_eval", T.data_ptr(),
-        dvec.data_ptr(), out.data_ptr(), r, n, float(n_total), fmax, a, b,
+        None if seed is None else seed.data_ptr(), dvec.data_ptr(),
+        out.data_ptr(), r, n, float(n_total), fmax, a, b,
         _build.stream_ptr(T.device))
     return out
 
@@ -432,20 +482,27 @@ def sieve_gain_eval_batched(
     n_total: int,
     fold: str = "min",
     affine: Optional[tuple] = None,
+    seed: Optional[torch.Tensor] = None,   # (n,) float32, shared by all P
 ) -> torch.Tensor:
     """:func:`sieve_gain_eval` for P stream partitions in one launch —
-    (P, r); each partition's row is bit for bit its own unbatched launch."""
+    (P, r), or (P, r + 1) with one ``seed`` row scored first in every
+    partition; each partition's row is bit for bit its own unbatched
+    launch."""
     if not T.is_cuda:
         return sieve_gain_eval_batched_plain(T, dvec, n_total=n_total,
-                                             fold=fold, affine=affine)
-    fmax, a, b = _check_sieve_operands(T, dvec, fold, affine, batched=True)
+                                             fold=fold, affine=affine,
+                                             seed=seed)
+    fmax, a, b = _check_sieve_operands(T, dvec, fold, affine, batched=True,
+                                       seed=seed)
     P, r, n = T.shape
-    out = torch.empty((P, r), dtype=torch.float32, device=T.device)
-    if P == 0 or r == 0:
+    rows = r + (seed is not None)
+    out = torch.empty((P, rows), dtype=torch.float32, device=T.device)
+    if P == 0 or rows == 0:
         return out
     _build.launch(
         "sieve_gain_eval_batched", "sieve_gain",
-        "repro_sieve_gain_eval_batched", T.data_ptr(), dvec.data_ptr(),
+        "repro_sieve_gain_eval_batched", T.data_ptr(),
+        None if seed is None else seed.data_ptr(), dvec.data_ptr(),
         out.data_ptr(), P, r, n, float(n_total), fmax, a, b,
         _build.stream_ptr(T.device))
     return out

@@ -279,15 +279,22 @@ def fused_gain_update(
 # ---------------------------------------------------------------------------
 
 
+def _seed_row(seed: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if seed is None else seed.to(torch.float32).contiguous()
+
+
 def sieve_gains(
     table: torch.Tensor,      # (r, n) float32 per-element cache rows
     dvec: torch.Tensor,       # (n,) float32 one element's distances to V
     *,
+    seed: Optional[torch.Tensor] = None,   # (n,) the function's seed row
     n_total: Optional[int] = None,
     fold: str = "min",
     score_affine: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Per-row gains of a cache table vs one stream element — (r,).
+    """Per-row gains of a cache table vs one stream element — (r,), or
+    (r + 1,) with ``seed``: the gains of ``cat([seed[None], table])``, the
+    seed read through its own pointer with no copy of the table.
 
     min template (default): row r gets
     ``n_total⁻¹ Σ_i relu(table[r, i] − dvec[i])``; max template
@@ -302,19 +309,22 @@ def sieve_gains(
         dvec.to(torch.float32).contiguous(),
         n_total=n_total if n_total is not None else table.shape[-1],
         fold=fold,
-        affine=None if score_affine is None else tuple(score_affine))
+        affine=None if score_affine is None else tuple(score_affine),
+        seed=_seed_row(seed))
 
 
 def sieve_gains_batched(
     tables: torch.Tensor,     # (P, r, n) float32 per-partition cache rows
     dvecs: torch.Tensor,      # (P, n) float32 per-partition element distances
     *,
+    seed: Optional[torch.Tensor] = None,   # (n,) one seed row for all P
     n_total: Optional[int] = None,
     fold: str = "min",
     score_affine: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Batched :func:`sieve_gains` — P partition tables scored against P
-    stream elements in one launch; returns (P, r). Each partition's gains
+    stream elements in one launch; returns (P, r), or (P, r + 1) with one
+    ``seed`` row scored first in every partition. Each partition's gains
     are bit for bit its own :func:`sieve_gains` call (the batched
     multi-stream sieve engine's parity rests on it)."""
     return _mg.sieve_gain_eval_batched(
@@ -322,4 +332,5 @@ def sieve_gains_batched(
         dvecs.to(torch.float32).contiguous(),
         n_total=n_total if n_total is not None else tables.shape[-1],
         fold=fold,
-        affine=None if score_affine is None else tuple(score_affine))
+        affine=None if score_affine is None else tuple(score_affine),
+        seed=_seed_row(seed))

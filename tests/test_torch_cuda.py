@@ -234,9 +234,110 @@ def test_batched_sieve_kernel_equals_unbatched_per_partition(dev, P, fold):
                                                 affine=aff),
           BANDS["fp32"], 1.0)
     for p in range(P):
-        one = mg.sieve_gain_eval(T[p], d[p], n_total=4099, fold=fold,
-                                 affine=aff)
-        assert torch.equal(one, got[p])
+        # T[p] starts off 16 bytes for odd p (n = 4 099): scalar loads; its
+        # fresh copy is aligned: 128-bit loads; the same adds either way
+        for Tp in (T[p], T[p].clone()):
+            one = mg.sieve_gain_eval(Tp, d[p], n_total=4099, fold=fold,
+                                     affine=aff)
+            assert torch.equal(one, got[p])
+
+
+def _sieve_edges():
+    """n at the edges of the sieve kernel's split: a block's span S at small
+    n and one past it, the first n whose last block gets a column, 8 load
+    groups of G columns and one past (a block loads its span in two
+    groups), and ragged and paper-size n."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    S, G = mg.sieve_span(1), mg.SIEVE_GROUP
+    return sorted({1, 3, S - 1, S, S + 1, 8 * S + 1, 4097, 8 * G, 8 * G + 1,
+                   50_000})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("n", _sieve_edges())
+def test_sieve_kernel_at_split_edges_matches_plain(dev, n, fold):
+    from repro_torch.kernels import marginal_gain as mg
+
+    T, d = _sieve_operands(dev, (), 35, n, fold, seed=n)
+    kw = dict(n_total=n, fold=fold,
+              affine=(SIM_ALPHA, SIM_BETA) if fold == "max" else None)
+    _band(mg.sieve_gain_eval(T, d, **kw), mg.sieve_gain_eval_plain(T, d, **kw),
+          BANDS["fp32"], 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["min", "max"])
+def test_sieve_row_bits_do_not_depend_on_the_table(dev, fold):
+    """A row's gain is the same bits at r = 1, 35 and 65, wherever the row
+    sits in the table and whatever its alignment (n = 4 099)."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    n = 4099
+    T, d = _sieve_operands(dev, (), 65, n, fold, seed=7)
+    kw = dict(n_total=n, fold=fold,
+              affine=(SIM_ALPHA, SIM_BETA) if fold == "max" else None)
+    full = mg.sieve_gain_eval(T, d, **kw)
+    for j in (0, 1, 2, 3, 34, 64):
+        for row in (T[j:j + 1], T[j:j + 1].clone()):
+            assert torch.equal(mg.sieve_gain_eval(row, d, **kw), full[j:j + 1])
+    for lo in (0, 1, 30):
+        assert torch.equal(mg.sieve_gain_eval(T[lo:lo + 35], d, **kw),
+                           full[lo:lo + 35])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("n", [4099, 50_000])
+def test_sieve_seed_launch_equals_concatenated_launch(dev, n, fold):
+    """``seed=`` reads the seed through its own pointer: bit for bit the
+    launch on ``cat([seed, T])``, unbatched and batched (one seed row for
+    every partition), and in band of the plain version."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    T, d = _sieve_operands(dev, (3,), 35, n, fold, seed=n + 1)
+    seed = T[1, 5].clone()
+    kw = dict(n_total=n, fold=fold,
+              affine=(SIM_ALPHA, SIM_BETA) if fold == "max" else None)
+    got = mg.sieve_gain_eval(T[0], d[0], seed=seed, **kw)
+    assert torch.equal(got, mg.sieve_gain_eval(torch.cat([seed[None], T[0]]),
+                                               d[0], **kw))
+    _band(got, mg.sieve_gain_eval_plain(T[0], d[0], seed=seed, **kw),
+          BANDS["fp32"], 1.0)
+    gotb = mg.sieve_gain_eval_batched(T, d, seed=seed, **kw)
+    full = torch.cat([seed.expand(3, 1, n), T], dim=1)
+    assert torch.equal(gotb, mg.sieve_gain_eval_batched(full, d, **kw))
+    assert torch.equal(gotb[0], got)
+    _band(gotb, mg.sieve_gain_eval_batched_plain(T, d, seed=seed, **kw),
+          BANDS["fp32"], 1.0)
+
+
+@pytest.mark.cuda
+def test_element_step_makes_no_table_copy_on_the_card(dev, monkeypatch):
+    """The ``cuda``-backend element step scores the seed and the table in
+    one launch, with no ``torch.cat`` of the table."""
+    from repro_torch.core import EvalConfig, ExemplarClustering
+    from repro_torch.core import streaming as tst
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import ops
+
+    X, _ = blobs(1000, 16, centers=8, seed=3)
+    f = ExemplarClustering(X, EvalConfig(backend="cuda"))
+    spec = tst.make_spec(5, 0.1, "sieve", backend="cuda", fn=f.spec)
+    state = tst.init_state(f.n, spec, dev)
+    dvec = f.point_distances_block(f.V[:1]).float()[0]
+    cats = []
+    real_cat = torch.cat
+    monkeypatch.setattr(torch, "cat", lambda *a, **k: cats.append(1) or
+                        real_cat(*a, **k))
+    before = ops.LAUNCHES["sieve_gain_eval"]
+    tst._element_step(spec, tst.step_consts(f, spec), state,
+                      torch.tensor(0, dtype=torch.int32, device=dev), dvec,
+                      torch.ones((), dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["sieve_gain_eval"] == before + 1
+    assert not cats
 
 
 @pytest.mark.cuda

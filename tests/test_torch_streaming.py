@@ -5,7 +5,11 @@ reference runs its Pallas kernels in interpret mode. The same numpy-made
 inputs go through both packages:
 
 * ``ops.sieve_gains`` / ``sieve_gains_batched`` on ragged (r, n), both
-  templates, within rtol 1e-6 (fp32 sums in another order);
+  templates, within rtol 1e-6 (fp32 sums in another order); with the seed
+  as its own operand (``seed=``) against the reference on the concatenated
+  table, and bit for bit the port's concatenated call; the seed's checks;
+  one ``cuda``-backend element step with the seed operand bit for bit the
+  step that scored the concatenated table;
 * one ``_element_step`` from a reference mid-stream table carried across by
   ``convert.sieve_state_from_arrays``: integer fields equal, caches,
   ``m_seen`` and ``lb`` within 1e-6;
@@ -141,6 +145,130 @@ def test_sieve_gain_wrappers_validate_operands():
     with pytest.raises(ValueError, match="contiguous"):
         mg._check_sieve_operands(torch.zeros(5, 3).T, d, "min", None,
                                  batched=False)
+
+
+def _seeded(rng, lead, r, n, fold):
+    """A seed row, r cache rows (r = 0 allowed) and distance rows; the seed
+    is partition 0's first row, in front of every partition's table."""
+    T, d = _sieve_operands(rng, lead, r + 1, n, fold)
+    seed = T[(0,) * len(lead) + (0,)].copy()
+    caches = np.ascontiguousarray(T[..., 1:, :])
+    full = np.concatenate([np.broadcast_to(seed, (*lead, 1, n)), caches],
+                          axis=-2)
+    return seed, caches, full, d
+
+
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("r,n", [(0, 3), (34, 257), (64, 1001), (7, 1024)])
+def test_sieve_gains_with_seed_match_reference(r, n, fold):
+    """``seed=`` scores the seed as row 0 of the output: within rtol 1e-6 of
+    the reference on the concatenated table, and bit for bit the port's own
+    call on that table (the plain version concatenates, so the CPU keeps
+    the bits it had before the seed became an operand)."""
+    rng = np.random.default_rng(100 * r + n)
+    seed, caches, full, d = _seeded(rng, (), r, n, fold)
+    aff = (SIM_ALPHA, SIM_BETA) if fold == "max" else None
+    kw = dict(fold=fold, score_affine=aff)
+    got = ops.sieve_gains(torch.tensor(caches), torch.tensor(d),
+                          seed=torch.tensor(seed), **kw)
+    ref = jops.sieve_gains(jnp.asarray(full), jnp.asarray(d), interpret=True,
+                           **kw)
+    assert got.shape == (r + 1,) and got.dtype == torch.float32
+    assert float(got.min()) > 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
+    assert torch.equal(got, ops.sieve_gains(torch.tensor(full),
+                                            torch.tensor(d), **kw))
+
+
+@pytest.mark.parametrize("fold", ["min", "max"])
+@pytest.mark.parametrize("P,n", [(1, 257), (3, 1001)])
+def test_sieve_gains_batched_with_seed_match_reference(P, n, fold):
+    """One seed row shared by every partition (stride 0): the reference on
+    the concatenated tables within rtol 1e-6, the port's concatenated call
+    bit for bit, and each partition its own unbatched ``seed=`` call."""
+    rng = np.random.default_rng(P * 31 + n)
+    seed, caches, full, d = _seeded(rng, (P,), 34, n, fold)
+    aff = (SIM_ALPHA, SIM_BETA) if fold == "max" else None
+    kw = dict(fold=fold, score_affine=aff)
+    Tt, dt, st = torch.tensor(caches), torch.tensor(d), torch.tensor(seed)
+    got = ops.sieve_gains_batched(Tt, dt, seed=st, **kw)
+    ref = jops.sieve_gains_batched(jnp.asarray(full), jnp.asarray(d),
+                                   interpret=True, **kw)
+    assert got.shape == (P, 35)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
+    assert torch.equal(got, ops.sieve_gains_batched(torch.tensor(full), dt,
+                                                    **kw))
+    for p in range(P):
+        assert torch.equal(got[p], ops.sieve_gains(Tt[p], dt[p], seed=st,
+                                                   **kw))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("bad,match", [
+    (lambda n: torch.zeros(n + 1), "seed must be one"),
+    (lambda n: torch.zeros(1, n), "seed must be one"),
+    (lambda n: torch.zeros(n, dtype=torch.float64), "float32"),
+    (lambda n: torch.zeros(2 * n)[::2], "contiguous"),
+    (lambda n: torch.zeros(n, device="meta"), "seed is on"),
+], ids=["length", "rank", "dtype", "stride", "device"])
+def test_sieve_seed_operand_is_validated(bad, match, batched):
+    from repro_torch.kernels import marginal_gain as mg
+
+    T = torch.zeros((2, 3, 5) if batched else (3, 5))
+    d = torch.zeros(T.shape[:-2] + (5,))
+    assert mg._check_sieve_operands(T, d, "min", None, batched=batched,
+                                    seed=torch.zeros(5)) == (0, 0.0, 0.0)
+    with pytest.raises(ValueError, match=match):
+        mg._check_sieve_operands(T, d, "min", None, batched=batched,
+                                 seed=bad(5))
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("variant", ["sieve", "pp", "salsa"])
+def test_element_step_seed_operand_keeps_the_state(variant, batched,
+                                                   monkeypatch):
+    """One ``cuda``-backend element step from a converted reference table
+    (after 40 elements) reaches, field for field and bit for bit, the state
+    it reached when it scored the concatenated table ``cat([seed,
+    caches])`` (the step before the seed became the kernel's operand)."""
+    tf, jf = _pair("cuda")
+    V = np.asarray(jf.V)
+    order = np.random.default_rng(6).permutation(tf.n)
+    jeng = jst.make_sieve_engine(jf, 4, 0.15, variant=variant, mode="device",
+                                 block_size=16, backend="jnp")
+    jeng.offer(order[:40], V[order[:40]])
+    fields = {k: np.asarray(v) for k, v in jeng.state._asdict().items()}
+    dmat = tf.point_distances_block(torch.tensor(V[order[40:42]])).float()
+    spec = tst.make_spec(4, 0.15, variant, backend="cuda", fn=tf.spec)
+    c = tst.step_consts(tf, spec)
+    lead = (2,) if batched else ()
+
+    def step():
+        st = convert.sieve_state_from_arrays(fields, device="cpu")
+        if batched:
+            st = tst.SieveState(*(torch.stack([x, x]) for x in st))
+        idx = torch.tensor(order[40:42] if batched else order[40],
+                           dtype=torch.int32)
+        return tst._element_step(spec, c, st, idx,
+                                 dmat if batched else dmat[0],
+                                 torch.ones(lead, dtype=torch.bool))
+
+    new, acc = step()
+
+    def concatenated(gains_of):
+        def call(caches, dvec, *, seed, **kw):
+            table = torch.cat([seed.expand(*caches.shape[:-2], 1,
+                                           seed.shape[0]), caches], dim=-2)
+            return gains_of(table, dvec, **kw)
+        return call
+
+    monkeypatch.setattr(ops, "sieve_gains", concatenated(ops.sieve_gains))
+    monkeypatch.setattr(ops, "sieve_gains_batched",
+                        concatenated(ops.sieve_gains_batched))
+    old, old_acc = step()
+    assert torch.equal(acc, old_acc)
+    for name in tst.SieveState._fields:
+        assert torch.equal(getattr(new, name), getattr(old, name)), name
 
 
 # ---------------------------------------------------------------------------
