@@ -60,6 +60,31 @@ Phases (any failure exits non-zero before the result lines):
    the first element whose accept decision that order flips, with the two
    orders' gains (``previous_order_gains`` replays the old order in plain
    PyTorch).
+   Then the mesh plans (phase 3d) at the same size: ``MESH_P`` = 4 gloo
+   ranks on ``cuda:0`` (``spawn_local``: a ``FileStore`` under ``build/``,
+   a timeout, every rank killed on a failure), each running greedy,
+   stochastic and lazy greedy under ``device_sharded`` and
+   ``device_sharded_pool``, ``greedi``, a bucket of four paper-size
+   tenants under both batched mesh plans with the tenants' unbatched calls,
+   and sieve / pp / salsa under ``device_sharded`` on the first 8 192
+   stream elements. Gates: every rank returns the same results; selections
+   and evaluations equal the device plan of phases 3 and 3c exactly,
+   trajectories and sieve values within 1e-5 of max(1, |value|); GreeDi at
+   least (1 − 1/e)² of device greedy with exact accounting; each bucket
+   request bit for bit its unbatched call; on every shard, at the mesh
+   path's shapes with the global n, the outputs of ``gain_eval``,
+   ``gain_update_eval`` and ``sieve_gain_eval`` within phase 2's fp32 band
+   of their plain versions on the same slice and bit for bit the kernel
+   launched alone on that slice, and their sum over the four shards within
+   that band of one launch, and ``gain_eval_batched`` /
+   ``gain_update_eval_batched`` at the bucket's (4, n/4, n, d) within the
+   band of their plain versions (each comparison catching a planted 1 %
+   error); on every rank, each kernel of the mesh path launched and no
+   plain version run. Launches are counted per rank over the mesh path
+   only. Then one NCCL rank runs greedy under ``device_sharded`` (= the
+   device plan). Each rank's wall per plan and launches per kernel are
+   printed beside the card's line; four ranks share one card, so the walls
+   are not a scaling figure.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -784,6 +809,7 @@ def phase_main_path():
             torch.cuda.synchronize()
             walls[f"{name} {mode}"] = time.perf_counter() - t0
         same_selection(f"{name} n={N} k={K}", res["device"], res["host"], f)
+        DEVICE_REFS[name] = res["device"]
         log(f"    wall: device {walls[f'{name} device']:.3f} s, host "
             f"{walls[f'{name} host']:.3f} s")
 
@@ -984,6 +1010,7 @@ def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
         f"{json.dumps(sub['sieve_streaming device, whole stream'])}")
 
     prefix = _stream(f, None, 0)[:PREFIX]
+    DEVICE_REFS["prefix"] = prefix
     algs = {"sieve": sieve_streaming, "pp": sieve_streaming_pp, "salsa": salsa}
     runs = {}
     for name, alg in algs.items():
@@ -992,6 +1019,7 @@ def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
                 f, K, eps=EPS, order=prefix, mode=mode, block_size=64))
         same_stream_result(f"{name} host vs device", runs[name, "host"],
                            runs[name, "device"])
+        DEVICE_REFS[name] = runs[name, "device"]
         dv, hs = (walls[f"{name} {m}, prefix"] for m in ("device", "host"))
         log(f"  {name} on the first {PREFIX} elements: host mirror = device "
             f"plan (members {runs[name, 'device'].indices}, evaluations "
@@ -1099,6 +1127,343 @@ def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
         f"ms; same bits: {torch.equal(one, per)}")
     log(f"    launches per sub-phase: {json.dumps(sub)}")
     return walls, f, full
+
+
+#: The mesh phase's (3d) references, from the single-device device plan on
+#: the same card: greedy / stochastic_greedy / lazy_greedy at the paper's
+#: size (phase 3) and the sieve family on the stream prefix (phase 3c).
+DEVICE_REFS: dict = {}
+#: Ranks of the mesh phase: gloo ranks sharing the one card.
+MESH_P = 4
+#: Kernels of the mesh path: the gain kernels and the sieve kernel on each
+#: rank's rows (``sieve_gain_eval_batched`` has no mesh form).
+MESH_KERNELS = ("gain_eval", "gain_update_eval", "gain_eval_batched",
+                "gain_update_eval_batched", "sieve_gain_eval")
+#: The plain versions and the torch scoring path a CUDA rank must not run.
+PLAIN_VERSIONS = ("gain_eval_plain", "gain_update_eval_plain",
+                  "gain_eval_batched_plain", "gain_update_eval_batched_plain",
+                  "sieve_gain_eval_plain", "sieve_gain_eval_batched_plain")
+
+
+def _counting(counter, name, real):
+    def call(*a, **kw):
+        counter[name] += 1
+        return real(*a, **kw)
+    return call
+
+
+def mesh_kernel_checks(f, fp, sh, N):
+    """On every rank, at the mesh path's shapes (the sums are collectives;
+    rank 0 reports): the outputs of ``gain_eval``, ``gain_update_eval``
+    (m = n, a dense round) and ``sieve_gain_eval`` (the seed and 34 sieve
+    rows) on this rank's shard, with the global n, against their plain
+    versions on the same slice (phase 2's fp32 band, a planted 1 % error
+    caught), and bit for bit against the same kernel launched alone on that
+    slice of the single-device operands; their sum in shard order against
+    one launch on the whole operands (the same band). Then the batched
+    kernels at the bucket's shapes, (4, n/p, n, d) with the global n,
+    against their plain versions."""
+    import torch
+
+    from repro_torch.core import distributed
+    from repro_torch.core.precision import FP32
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    entry = distributed._placed_sharded(f, sh)
+    V_loc, seed_loc = entry["V_sh"], entry["seed_sh"]
+    n_loc = V_loc.shape[0]
+    lo, hi = sh.index * n_loc, min((sh.index + 1) * n_loc, N)
+    if hi - lo != n_loc:
+        raise AssertionError("the kernel checks need n divisible by p")
+    seed = f.cache_seed
+    C = f.V
+    w = f.V[N // 4 + 1]
+    ok = torch.ones((), device=f.V.device)
+    # a (34, N) table of sieve caches: the seed folded with 1..34 elements
+    D = f.point_distances_block(f.V[N // 2:N // 2 + 34]).to(torch.float32)
+    T = torch.minimum(seed[None, :], torch.cummin(D, dim=0).values)
+    dvec = f.point_distances_block(f.V[3 * N // 4:3 * N // 4 + 1])[0].to(
+        torch.float32)
+    T_loc, dvec_loc = T[:, lo:hi].contiguous(), dvec[lo:hi].contiguous()
+
+    def norms(*xs):
+        return sum(float((x * x).sum(-1).max()) for x in xs)
+
+    scale = {"gain_eval": norms(V_loc, C), "gain_update_eval": norms(V_loc, C),
+             "sieve_gain_eval": 1.0}
+    gkw = dict(n_total=N, policy=FP32)
+    shard = {
+        "gain_eval": lambda: ops.marginal_gain(V_loc, C, seed_loc,
+                                               n_total=N),
+        "gain_update_eval": lambda: ops.fused_gain_update(
+            V_loc, C, seed_loc, w, n_total=N, w_valid=ok),
+        "sieve_gain_eval": lambda: ops.sieve_gains(
+            T_loc, dvec_loc, seed=seed_loc, n_total=N),
+    }
+    plain = {
+        "gain_eval": lambda: mg.gain_eval_plain(V_loc, C, seed_loc, **gkw),
+        "gain_update_eval": lambda: mg.gain_update_eval_plain(
+            V_loc, C, seed_loc, w, ok, **gkw),
+        "sieve_gain_eval": lambda: mg.sieve_gain_eval_plain(
+            T_loc, dvec_loc, seed=seed_loc, n_total=N),
+    }
+    alone = {
+        "gain_eval": lambda: ops.marginal_gain(f.V[lo:hi], C, seed[lo:hi],
+                                               n_total=N),
+        "gain_update_eval": lambda: ops.fused_gain_update(
+            f.V[lo:hi], C, seed[lo:hi], w, n_total=N, w_valid=ok),
+        "sieve_gain_eval": lambda: ops.sieve_gains(
+            T[:, lo:hi], dvec[lo:hi], seed=seed[lo:hi], n_total=N),
+    }
+    whole = {
+        "gain_eval": lambda: ops.marginal_gain(f.V, C, seed),
+        "gain_update_eval": lambda: ops.fused_gain_update(
+            f.V, C, seed, w, w_valid=ok),
+        "sieve_gain_eval": lambda: ops.sieve_gains(T, dvec, seed=seed),
+    }
+
+    def outputs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    vs_plain, vs_whole = Checker(), Checker()
+    tag = f"shard {sh.index} of {sh.p}, n_loc={n_loc}, n_total={N}"
+    out = {}
+    for name in shard:
+        got, ref = outputs(shard[name]()), outputs(plain[name]())
+        for what, a, b in zip(("gains", "cache"), got, ref):
+            vs_plain(name, a, b, "fp32", f"{tag} {what} vs plain",
+                     scale=scale[name])
+        same = all(torch.equal(a, b)
+                   for a, b in zip(got, outputs(alone[name]())))
+        if not same:
+            raise AssertionError(f"{name}: shard {sh.index}'s output differs "
+                                 f"from the kernel launched alone on its "
+                                 f"slice")
+        total = distributed.ordered_sum(sh, got[0])
+        # the rows' distances are the same bits in both launches: only the
+        # order of the fp32 sum over n differs, so the band scales with
+        # the output alone
+        vs_whole(name, total, outputs(whole[name]())[0], "fp32",
+                 f"sum of {sh.p} shards vs one launch, n={N}")
+        key = (name, "fp32")
+        out[name] = {"shard_bit_for_bit": same,
+                     "plain_max_abs_err": vs_plain.max_err[key],
+                     "plain_fault_over_band": vs_plain.fault_over_band[key][0],
+                     "sum_max_abs_err": vs_whole.max_err[key],
+                     "planted_fault_over_band":
+                         vs_whole.fault_over_band[key][0]}
+    # the bucket: four tenants' shards against their whole candidate pools
+    Vb = torch.stack([g.V[lo:hi] for g in fp]).contiguous()
+    Cb = torch.stack([g.V for g in fp]).contiguous()
+    cb = torch.stack([g.cache_seed[lo:hi].float() for g in fp]).contiguous()
+    wb = torch.stack([g.V[N // 4 + 1] for g in fp]).contiguous()
+    wv = torch.tensor([1.0, 0.0, 1.0, 1.0], device=f.V.device)
+    bscale = norms(Vb, Cb)
+    btag = f"B={len(fp)} {tag}"
+    vs_plain("gain_eval_batched", ops.marginal_gain(Vb, Cb, cb, n_total=N),
+             mg.gain_eval_batched_plain(Vb, Cb, cb, **gkw), "fp32",
+             f"{btag} vs plain", scale=bscale)
+    got = ops.fused_gain_update(Vb, Cb, cb, wb, n_total=N, w_valid=wv)
+    ref = mg.gain_update_eval_batched_plain(Vb, Cb, cb, wb, wv, **gkw)
+    for what, a, b in zip(("gains", "cache"), got, ref):
+        vs_plain("gain_update_eval_batched", a, b, "fp32",
+                 f"{btag} {what} vs plain", scale=bscale)
+    for name in ("gain_eval_batched", "gain_update_eval_batched"):
+        key = (name, "fp32")
+        out[name] = {"plain_max_abs_err": vs_plain.max_err[key],
+                     "plain_fault_over_band":
+                         vs_plain.fault_over_band[key][0]}
+    return out
+
+
+def mesh_rank(rank, world, prefix, N):
+    """One gloo rank of the mesh phase, on the one card."""
+    import collections
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import (EvalConfig, ExemplarClustering, greedy,
+                                  lazy_greedy, run_selection,
+                                  run_selection_batch, salsa, sieve_streaming,
+                                  sieve_streaming_pp, stochastic_greedy)
+    from repro_torch.core import distributed
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    torch.cuda.set_device(0)
+    DIM, K = 100, 10
+    plain = collections.Counter()
+    for name in PLAIN_VERSIONS:
+        setattr(mg, name, _counting(plain, name, getattr(mg, name)))
+    distributed._score_blocked = _counting(plain, "_score_blocked",
+                                           distributed._score_blocked)
+    cfg = EvalConfig(backend="cuda")
+    f = ExemplarClustering(blobs(N, DIM, centers=16, seed=0)[0], cfg)
+    fp = [ExemplarClustering(blobs(N, DIM, centers=16, seed=t)[0], cfg)
+          for t in range(4)]
+    greedy(f, 2, mode="device_sharded")        # warm-up: mesh, libraries
+    results, walls = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        results[key] = fn()
+        torch.cuda.synchronize()
+        walls[" ".join(key) if isinstance(key, tuple) else key] = \
+            time.perf_counter() - t0
+
+    ops.LAUNCHES.clear()
+    plain.clear()
+    for plan in ("device_sharded", "device_sharded_pool"):
+        timed(("greedy", plan), lambda: greedy(f, K, mode=plan))
+        timed(("stochastic_greedy", plan),
+              lambda: stochastic_greedy(f, K, seed=0, mode=plan))
+        timed(("lazy_greedy", plan), lambda: lazy_greedy(f, K, mode=plan))
+    timed("greedi", lambda: greedy(f, K, mode="greedi"))
+    for plan in ("device_sharded", "device_sharded_pool"):
+        timed(("bucket", plan), lambda: run_selection_batch(
+            fp, kind="dense", k=K, plan=plan))
+        timed(("unbatched", plan), lambda: [run_selection(
+            g, kind="dense", k=K, cand_rounds=np.arange(N)[None, :],
+            plan=plan) for g in fp])
+    for name, alg in (("sieve", sieve_streaming), ("pp", sieve_streaming_pp),
+                      ("salsa", salsa)):
+        timed(name, lambda: alg(f, K, eps=0.1, order=prefix,
+                                mode="device_sharded", block_size=64))
+    torch.cuda.synchronize()
+    launches, plain_calls = dict(ops.LAUNCHES), dict(plain)
+    sh = distributed.resolve_mesh(None, ("data",))
+    kernels = mesh_kernel_checks(f, fp, sh, N)
+    return {"results": results, "walls": walls, "launches": launches,
+            "plain": plain_calls, "kernels": kernels, "shard": sh.index,
+            "tiles_per_memory": sh.tiles_per_memory(f.device)}
+
+
+def nccl_rank(rank, world, N):
+    """The one-rank NCCL run: greedy under ``device_sharded``."""
+    import torch
+
+    from repro_torch.core import EvalConfig, ExemplarClustering, greedy
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import ops
+
+    torch.cuda.set_device(0)
+    f = ExemplarClustering(blobs(N, 100, centers=16, seed=0)[0],
+                           EvalConfig(backend="cuda"))
+    greedy(f, 2, mode="device_sharded")
+    ops.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = greedy(f, 10, mode="device_sharded")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(ops.LAUNCHES)
+
+
+def same_as_device(what, got, ref, rtol=1e-5):
+    """A mesh plan's result against the device plan's: identical indices
+    and evaluations, trajectories within ``rtol`` of max(1, |ref|)."""
+    import numpy as np
+
+    a, b = np.asarray(got.trajectory), np.asarray(ref.trajectory)
+    err = float(np.max(np.abs(a - b))) if len(a) == len(b) else float("inf")
+    if got.indices != ref.indices or got.evaluations != ref.evaluations \
+            or not err <= rtol * max(1.0, float(np.max(np.abs(b)))):
+        raise AssertionError(f"{what}: {got.indices} / {got.evaluations} != "
+                             f"device plan {ref.indices} / {ref.evaluations} "
+                             f"(trajectory diff {err:.3e})")
+    return err
+
+
+def phase_mesh(refs: dict, K=10, N=50_000):
+    """The mesh plans on the card: MESH_P gloo ranks on cuda:0, then one
+    NCCL rank. Returns the per-rank launches and walls."""
+    import math
+
+    from repro_torch.core.distributed import spawn_local
+
+    store = ROOT / "build" / "mesh"
+    store.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = spawn_local(mesh_rank, MESH_P, store_dir=store, backend="gloo",
+                        args=(refs["prefix"], N), timeout=900)
+    log(f"  {MESH_P} gloo ranks on cuda:0 (tiles per memory "
+        f"{ranks[0]['tiles_per_memory']}): {time.perf_counter() - t0:.1f} s "
+        f"with their start")
+    r0 = ranks[0]["results"]
+    for q, r in enumerate(ranks[1:], 1):
+        if r["results"] != r0:
+            diff = [k for k in r0 if r["results"].get(k) != r0[k]]
+            raise AssertionError(f"rank {q}'s results differ from rank 0's "
+                                 f"in {diff}")
+    log(f"  every rank returned the same result ({len(r0)} runs)")
+    for name in ("greedy", "stochastic_greedy", "lazy_greedy"):
+        for plan in ("device_sharded", "device_sharded_pool"):
+            err = same_as_device(f"{name} {plan} p={MESH_P}", r0[name, plan],
+                                 refs[name])
+            log(f"  {name} {plan} p={MESH_P} n={N} k={K}: indices and "
+                f"evaluations {r0[name, plan].evaluations} = device plan; "
+                f"trajectory max diff {err:.3e}")
+    gd, base = r0["greedi"], refs["greedy"]
+    n_loc = N // MESH_P
+    expect = MESH_P * sum(n_loc - t for t in range(K)) \
+        + sum(MESH_P * K - t for t in range(K)) + MESH_P * K
+    floor = (1.0 - 1.0 / math.e) ** 2 * base.value
+    if not (len(set(gd.indices)) == K and gd.value >= floor
+            and gd.evaluations == expect):
+        raise AssertionError(f"greedi: {gd} (floor {floor:.6f}, evaluations "
+                             f"expected {expect})")
+    log(f"  greedi p={MESH_P}: value {gd.value:.6f} >= (1-1/e)^2 x device "
+        f"greedy {base.value:.6f} = {floor:.6f}; evaluations {expect} exact")
+    for plan in ("device_sharded", "device_sharded_pool"):
+        for t, (got, ref) in enumerate(zip(r0["bucket", plan],
+                                           r0["unbatched", plan])):
+            same_result(f"{plan} bucket tenant {t}", got, ref)
+        log(f"  {plan}: a bucket of four {N}-row tenants = their unbatched "
+            f"{plan} calls, bit for bit")
+    for name in ("sieve", "pp", "salsa"):
+        # an element's gains and values are sums over n in another order
+        # (shards, then shard order), so values agree to the selections'
+        # 1e-5 of max(1, |value|)
+        same_stream_result(f"{name} device_sharded p={MESH_P}", r0[name],
+                           refs[name],
+                           atol=1e-5 * max(1.0, abs(refs[name].value)))
+        log(f"  {name} device_sharded p={MESH_P} on the first "
+            f"{len(refs['prefix'])} elements = device plan (members "
+            f"{r0[name].indices}, evaluations {r0[name].evaluations}, value "
+            f"diff {abs(r0[name].value - refs[name].value):.3e})")
+    kern = ranks[0]["kernels"]
+    log(f"  kernels on shard 0 (against their plain versions on the slice "
+        f"with the global n; bit for bit their launch alone on the slice; "
+        f"the sum of the {MESH_P} shards against one launch): "
+        f"{json.dumps(kern)}")
+    for q, r in enumerate(ranks):
+        missing = [k for k in MESH_KERNELS if r["launches"].get(k, 0) == 0]
+        if missing or r["plain"]:
+            raise AssertionError(f"rank {q}: no launch of {missing} or plain "
+                                 f"versions run {r['plain']}")
+        log(f"  rank {q} (shard {r['shard']}): launches "
+            f"{json.dumps(r['launches'])}; plain versions 0; walls (s) "
+            f"{json.dumps({k: round(v, 4) for k, v in r['walls'].items()})}")
+    t0 = time.perf_counter()
+    (res, wall, nccl_launches), = spawn_local(
+        nccl_rank, 1, store_dir=store, backend="nccl", args=(N,),
+        timeout=300)
+    err = same_as_device("greedy device_sharded over NCCL", res,
+                         refs["greedy"])
+    if not nccl_launches.get("gain_update_eval"):
+        raise AssertionError(f"NCCL rank launched {nccl_launches}")
+    log(f"  1 NCCL rank: greedy device_sharded = device plan (trajectory "
+        f"max diff {err:.3e}); wall {wall:.4f} s; launches "
+        f"{json.dumps(nccl_launches)}; {time.perf_counter() - t0:.1f} s with "
+        f"its start")
+    log(f"  card: {card_line()} (walls of {MESH_P} ranks sharing one card: "
+        f"not a scaling figure)")
+    return {q: r["launches"] for q, r in enumerate(ranks)}
 
 
 def previous_order_gains(caches, dvec, *, seed, n_total=None, fold="min",
@@ -1697,6 +2062,12 @@ def main() -> int:
             f"{first_flip(fstream, 10, 0.1, _stream(fstream, None, 0))} "
             f"({time.perf_counter() - t1:.1f} s)")
     del fstream
+    log(f"[3d] mesh plans: {MESH_P} gloo ranks on cuda:0, then one NCCL rank "
+        f"(n = 50 000, d = 100, k = 10)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches = phase_mesh(DEVICE_REFS)
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
     # each path's own launches: the main path's four kernels, the serving
     # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}
@@ -1732,7 +2103,11 @@ def main() -> int:
             "max_abs_err": check.max_err[(name, "fp32")],
             "main_rel_err": r["main_rel_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": r["library_ms"]})
+            "bound_by": bound_by, "library_ms": r["library_ms"],
+            # per rank of the mesh phase (3d), for the kernels it runs
+            **({"mesh_launches": [mesh_launches[q].get(name, 0)
+                                  for q in sorted(mesh_launches)]}
+               if name in MESH_KERNELS else {})})
     log(f"    main-path first-call wall times (s): {json.dumps(walls)}")
     log("[5] end to end at the paper's size (steady state)")
     log(f"    {json.dumps(phase_end_to_end())}")

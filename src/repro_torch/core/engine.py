@@ -14,10 +14,13 @@ choices:
                     fresh-top invariant certifies the winner.
 
 * an **execution plan** — where the rounds run: ``host`` (the reference loop
-  in :mod:`repro_torch.core.optimizers`, one gains call per round) or
+  in :mod:`repro_torch.core.optimizers`, one gains call per round),
   ``device`` (:func:`_select_scan`: the k rounds as a Python loop whose
   cache, taken mask, winner row, argmax and trajectory all stay on the
-  device). The mesh plans of the reference are not ported yet.
+  device), or one of the mesh plans of :mod:`repro_torch.core.distributed`
+  (``device_sharded``, ``device_sharded_pool``, ``greedi``): the same
+  rounds on every rank of a ``torch.distributed`` mesh, each rank holding
+  n/p rows of V and of the cache.
 
 :func:`run_selection_batch` runs B independent requests of one signature
 per dispatch (the multi-tenant serving path of
@@ -105,21 +108,38 @@ def _gain_tile_cap_elems(itemsize: int = 4) -> int:
     return _GAIN_TILE_CAP_ELEMS
 
 
-def _device_block_m(n: int, m: int, n_batch: int = 1) -> int:
+def _device_block_m(n: int, m: int, tiles_per_memory: int = 1,
+                    n_batch: int = 1) -> int:
     """Candidate block size bounding the torch backend's (n, Bm) gain tile,
     autotuned from the free-memory probe ``plan_chunks`` uses. The floor of
     8 lets the cap be exceeded only where chunking V itself is the right
     tool.
 
+    ``n`` is the height of the tile that materializes: a rank's own n/p
+    rows under the mesh plans. ``tiles_per_memory`` divides the cap when
+    several ranks' tiles live in one memory (all CPU ranks of a host, or
+    several ranks on one card: :func:`mesh_tiles_per_memory`).
     ``n_batch`` scales the tile height: a batched dispatch of B requests
     keeps B (n, Bm) tiles' worth of state live, so a B = 1024 bucket sized
     as if B = 1 would over-commit memory B×.
     """
-    cap_elems = _gain_tile_cap_elems()
+    cap_elems = _gain_tile_cap_elems() // max(tiles_per_memory, 1)
     rows = n * max(n_batch, 1)
     if rows * m <= cap_elems:
         return m
     return max(8, min(m, cap_elems // max(rows, 1)))
+
+
+def mesh_tiles_per_memory(mesh, data_axes: Sequence[str] = ("data",),
+                          device="cpu") -> int:
+    """How many ranks of ``mesh``'s data group carve their gain tiles for
+    tensors on ``device`` out of one memory: every CPU rank of a host, or
+    the CUDA ranks that share one card. Read from one all-gather of each
+    rank's memory identity when the mesh is first resolved (a collective:
+    every rank resolves the mesh)."""
+    from repro_torch.core import distributed
+
+    return distributed.resolve_mesh(mesh, data_axes).tiles_per_memory(device)
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -275,8 +295,10 @@ def make_lazy_step(take, n_pool, fold, score_idx_val, top_b: int,
     return step
 
 
-def drive_selection_scan(*, kind, k, top_b, pool, cand_rounds, cache0, w0,
-                         fold, score_idx_val, fold_score_val, value_of):
+def drive_selection_scan(*, kind, k, top_b, cand_rounds, cache0, w0, fold,
+                         score_idx_val=None, fold_score_val=None,
+                         value_of=None, pool=None, take=None, n_pool=None,
+                         taken0=None):
     """Run k selection rounds given the plan's callbacks.
 
     CELF's bound seeding, the dense one-row vs stochastic per-round
@@ -285,22 +307,31 @@ def drive_selection_scan(*, kind, k, top_b, pool, cand_rounds, cache0, w0,
     winner carry is a ``(payload row, index)`` pair whose index is −1 before
     round 0 (folds gate on it).
 
+    The candidate payload is addressed through ``take(idx) -> (row,
+    index)``: pass a resident ``pool`` (``take`` defaults to ``(pool[idx],
+    idx)``), or ``take`` and ``n_pool`` where no plan-wide payload exists
+    (the sharded pool gathers the requested row from its owner) or where
+    pool and global indices differ (GreeDi's merge round). ``taken0``
+    pre-marks pool rows as taken (a GreeDi partition's padding rows).
+
     Returns ``(sel, traj, n_scored)`` as device tensors.
     """
-    n_pool = pool.shape[0]
+    if take is None:
+        n_pool = pool.shape[0]
 
-    def take(idx):
-        return (_at(pool, idx), idx)
+        def take(idx):
+            return (_at(pool, idx), idx)
 
-    taken = torch.zeros((n_pool,), dtype=torch.bool, device=pool.device)
+    dev = cache0[0].device
+    taken = taken0.clone() if taken0 is not None else torch.zeros(
+        (n_pool,), dtype=torch.bool, device=dev)
     sel, vals, scored = [], [], []
     if kind == "lazy":
         step = make_lazy_step(take, n_pool, fold, score_idx_val, top_b,
                               celf_max_iters(n_pool, top_b))
         # round -1: fresh singleton gains seed the bounds (counts one eval
         # per pool row, exactly like host CELF's initial full scoring)
-        ub0, _ = score_idx_val(
-            cache0, torch.arange(n_pool, device=pool.device))
+        ub0, _ = score_idx_val(cache0, torch.arange(n_pool, device=dev))
         carry = (cache0, taken, w0, ub0)
         for _ in range(k):
             carry, (j, val, sc) = step(carry)
@@ -476,8 +507,8 @@ def make_batched_rounds_step(take, fold_score_val, k_eff):
     return step
 
 
-def make_batched_lazy_step(take, fold, score_idx, value_of, top_b: int,
-                           max_iters: int, k_eff):
+def make_batched_lazy_step(take, fold, score_idx_val, top_b: int,
+                           max_iters: int, k_eff, value_of=None):
     """Batched :func:`make_lazy_step` — per-request CELF bound state.
 
     Each request carries its own (n,) stale bounds and freshness; the loop
@@ -488,15 +519,24 @@ def make_batched_lazy_step(take, fold, score_idx, value_of, top_b: int,
     0..c_b−1, and c_b is what its unbatched loop would run. Each test of
     the loop condition is one scalar host sync, as in the unbatched step.
     Top-B ties break by lowest index (a stable descending sort per row).
-    The trajectory value is ``value_of`` of the folded cache, which frozen
-    requests (that skip the loop) need as well.
+
+    ``score_idx_val(cache, idx (B, m)) -> ((B, m) gains, (B,) value)``
+    re-scores. The trajectory value is that of the round's folded cache,
+    which frozen requests (that skip the loop) need as well. With
+    ``value_of`` (the device plan) it is ``value_of`` of that cache, taken
+    once before the loop. Without it (the mesh plans, whose gain partials
+    and stat sums cross the mesh in one collective) it is the value the
+    re-score returns: the loop does not change the cache, so any iteration
+    gives it. The loop then runs at least once, even when every request is
+    frozen; that iteration is inert (``live`` masks every lane).
     """
+    first = 0 if value_of is not None else 1
 
     def step(carry, t: int):
         cache, taken, w_prev, ub = carry
         cache2 = fold(cache, w_prev)
         act = k_eff > t
-        val = value_of(cache2)
+        val = value_of(cache2) if value_of is not None else None
         fresh = torch.zeros_like(taken)
         scored = torch.zeros_like(k_eff, dtype=torch.int32)
         ub_c = ub
@@ -506,13 +546,16 @@ def make_batched_lazy_step(take, fold, score_idx, value_of, top_b: int,
             fresh_best = torch.amax(torch.where(fresh & ~taken, ub_c,
                                                 -torch.inf), dim=1)
             active = (fresh_best < torch.amax(stale, dim=1)) & act
-            if not bool(torch.any(active)):  # one sync
+            if it >= first and not bool(torch.any(active)):  # one sync
                 break
             top_ub, top_idx = torch.sort(stale, dim=1, descending=True,
                                          stable=True)
             top_ub, top_idx = top_ub[:, :top_b], top_idx[:, :top_b]
             live = (top_ub > -torch.inf) & active[:, None]
-            gains_b = torch.where(live, score_idx(cache2, top_idx), -torch.inf)
+            gains_b, v = score_idx_val(cache2, top_idx)
+            if value_of is None:
+                val = v
+            gains_b = torch.where(live, gains_b, -torch.inf)
             ub_c = ub_c.scatter(1, top_idx, torch.where(
                 live, gains_b, torch.gather(ub_c, 1, top_idx)))
             fresh = fresh.scatter(1, top_idx,
@@ -528,18 +571,11 @@ def make_batched_lazy_step(take, fold, score_idx, value_of, top_b: int,
     return step
 
 
-def make_batched_lazy_step_val(*args, **kwargs):
-    """The mesh form of :func:`make_batched_lazy_step` (each re-score's
-    trajectory value riding the round's one all-reduce) serves only the
-    batched mesh plans, which are not ported yet."""
-    raise NotImplementedError(
-        "make_batched_lazy_step_val serves the batched mesh plans on "
-        "torch.distributed: ROADMAP item A.7")
-
-
-def drive_selection_scan_batched(*, kind, k, top_b, pool, k_eff, cand_rounds,
-                                 cache0, w0, fold, score_idx, fold_score_val,
-                                 value_of):
+def drive_selection_scan_batched(*, kind, k, top_b, k_eff, cand_rounds,
+                                 cache0, w0, fold, score_idx=None,
+                                 score_idx_val=None, fold_score_val=None,
+                                 value_of=None, pool=None, take=None,
+                                 n_pool=None):
     """Batched :func:`drive_selection_scan` — k rounds of B requests.
 
     ``pool`` is the (B, n, d) stacked payload; ``cand_rounds`` is (B, k, m)
@@ -550,24 +586,40 @@ def drive_selection_scan_batched(*, kind, k, top_b, pool, k_eff, cand_rounds,
     -> (B, m)``, ``fold_score_val(cache, w_prev, cand_t) -> (gains, cache,
     (B,) value)``, ``value_of(cache) -> (B,)``.
 
+    As in the unbatched driver, plans with no resident per-request payload
+    pass ``take(idx (B,)) -> ((B, d) rows, idx)`` and ``n_pool`` instead
+    of ``pool``. The mesh plans pass ``score_idx_val(cache, idx) -> (gains,
+    (B,) value)`` (gains and per-request values in one collective) where
+    the device plan passes ``score_idx``; CELF then takes its values from
+    the re-scores (:func:`make_batched_lazy_step`).
+
     Returns ``(sel (k, B), traj (k, B), n_scored (B,))`` as device tensors.
     """
-    B, n_pool = pool.shape[:2]
-    dev = pool.device
-    rows = torch.arange(B, device=dev)
+    B = k_eff.shape[0]
+    dev = k_eff.device
+    if take is None:
+        n_pool = pool.shape[1]
+        rows = torch.arange(B, device=dev)
 
-    def take(idx):
-        return (pool[rows, idx], idx)
+        def take(idx):
+            return (pool[rows, idx], idx)
 
     taken = torch.zeros((B, n_pool), dtype=torch.bool, device=dev)
     sel, vals, scored = [], [], []
     if kind == "lazy":
-        step = make_batched_lazy_step(take, fold, score_idx, value_of, top_b,
-                                      celf_max_iters(n_pool, top_b), k_eff)
+        all_idx = torch.arange(n_pool, device=dev).expand(B, n_pool)
+        step_value_of = None
+        if score_idx_val is None:
+            step_value_of = value_of
+
+            def score_idx_val(cache, idx):
+                return score_idx(cache, idx), None
+        step = make_batched_lazy_step(
+            take, fold, score_idx_val, top_b, celf_max_iters(n_pool, top_b),
+            k_eff, value_of=step_value_of)
         # round -1: per-request singleton gains seed the bounds (one eval
         # per pool row for every request that runs ≥ 1 round)
-        ub0 = score_idx(cache0, torch.arange(n_pool, device=dev)
-                        .expand(B, n_pool))
+        ub0, _ = score_idx_val(cache0, all_idx)
         carry = (cache0, taken, w0, ub0)
         for t in range(k):
             carry, (j, val, sc) = step(carry, t)
@@ -725,10 +777,13 @@ def run_selection(
     k: int,
     cand_rounds: Optional[np.ndarray] = None,
     top_b: int = 0,
-    plan: str = "device",
+    plan: str = "device",             # "device" | "device_sharded" |
+                                      # "device_sharded_pool" | "greedi"
     block_m: Optional[int] = None,
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
-    """Run a round-candidate strategy under the ``device`` execution plan.
+    """Run a round-candidate strategy under a device execution plan.
 
     ``cand_rounds`` carries the per-round candidate indices for the dense
     and stochastic strategies ((k, m), global indices); the lazy strategy
@@ -736,12 +791,21 @@ def run_selection(
     default re-score width of 256). A stochastic round whose sample row is
     entirely exhausted by earlier selections raises rather than silently
     re-selecting a taken index.
+
+    Plans: ``device`` (the k rounds on one device), and the mesh plans of
+    :mod:`repro_torch.core.distributed`, run by every rank of ``mesh`` (a
+    ``DeviceMesh``; None is a 1-D mesh over the default process group) with
+    the same arguments: ``device_sharded`` (V and the cache row-sharded
+    over ``data_axes``, the candidate payload replicated),
+    ``device_sharded_pool`` (the payload row-shards too: candidate blocks
+    and the round's winner are gathered from their owners), ``greedi``
+    (dense only: each rank greedily solves its own partition, the p·k
+    partial solutions are gathered, and a merge greedy runs under the
+    sharded cache; selections carry the GreeDi bound instead of matching
+    centralized greedy). Every rank returns the same result.
     """
-    if plan in ("device_sharded", "device_sharded_pool", "greedi"):
-        raise NotImplementedError(
-            f"execution plan {plan!r} is not ported yet: the mesh plans on "
-            f"torch.distributed are ROADMAP item A.7")
-    if plan != "device":
+    mesh_plans = ("device_sharded", "device_sharded_pool", "greedi")
+    if plan != "device" and plan not in mesh_plans:
         raise ValueError(f"unknown execution plan {plan!r}")
     if k == 0:
         return OptResult([], 0.0, [], 0)
@@ -779,12 +843,39 @@ def run_selection(
     else:
         m_widest = cand_rounds.shape[1]
 
-    bm = block_m if block_m is not None else _device_block_m(f.n, m_widest)
-    sel, traj, n_scored = _select_scan(
-        f.V, f.cache_seed, f.row_aux,
-        torch.as_tensor(np.asarray(cand_rounds, np.int64), device=f.device),
-        w0, fn=fn, kind=kind, k=k, top_b=top_b, distance=f.cfg.distance,
-        policy=policy, block_m=bm, backend=backend, rbf_gamma=rbf_gamma)
+    cand_t = torch.as_tensor(np.asarray(cand_rounds, np.int64),
+                             device=f.device)
+    if plan == "device":
+        bm = block_m if block_m is not None \
+            else _device_block_m(f.n, m_widest)
+        sel, traj, n_scored = _select_scan(
+            f.V, f.cache_seed, f.row_aux, cand_t, w0, fn=fn, kind=kind, k=k,
+            top_b=top_b, distance=f.cfg.distance, policy=policy, block_m=bm,
+            backend=backend, rbf_gamma=rbf_gamma)
+    elif plan == "greedi":
+        from repro_torch.core import distributed
+
+        if kind != "dense":
+            raise ValueError(
+                "plan 'greedi' partitions the *dense* greedy strategy; "
+                f"strategy {kind!r} has no partition-then-merge form here")
+        if cand_rounds.shape[1] != f.n:
+            raise ValueError(
+                "plan 'greedi' partitions the full ground set; candidate "
+                "subsets are not supported (every V row must be eligible "
+                "in its own partition)")
+        sel, traj, n_scored = distributed.run_greedi_selection(
+            f, w0, k=k, block_m=block_m, mesh=mesh, data_axes=data_axes,
+            backend=backend, rbf_gamma=rbf_gamma)
+    else:
+        from repro_torch.core import distributed
+
+        sel, traj, n_scored = distributed.run_sharded_selection(
+            f, cand_t, w0, kind=kind, k=k, top_b=top_b, m_widest=m_widest,
+            block_m=block_m, mesh=mesh, data_axes=data_axes,
+            backend=backend, rbf_gamma=rbf_gamma,
+            pool_plan="sharded" if plan == "device_sharded_pool"
+            else "replicated")
 
     # the one host sync of a dense/stochastic selection
     sel = [int(x) for x in sel.cpu().tolist()]
@@ -814,17 +905,32 @@ def _stack_batch_payload(fs: Sequence[SubmodularFunction]) -> dict:
             "w0": torch.stack(w0).to(f0.V.dtype)}
 
 
-def stage_selection_batch(fs: Sequence[SubmodularFunction]
+def stage_selection_batch(fs: Sequence[SubmodularFunction], *,
+                          plan: str = "device", mesh=None,
+                          data_axes: Sequence[str] = ("data",)
                           ) -> Optional[dict]:
     """Stack a bucket's payload ahead of its dispatch (single use: one
-    ``run_selection_batch(..., staged=...)`` call with the same ``fs``).
+    ``run_selection_batch(..., staged=...)`` call with the same ``fs`` and
+    plan). Under the batched mesh plans each rank stacks its own (B, n/p)
+    rows (:func:`repro_torch.core.distributed.stage_sharded_batch`).
 
     The stacking is enqueued on the calling thread's current CUDA stream,
     so it is ordered with any dispatch on that stream: no copy can race its
     use, and none overlaps a dispatch (that needs a second stream, an event
     and ``record_stream``, and is later work).
     """
-    return _stack_batch_payload(fs) if fs else None
+    if not fs:
+        return None
+    if plan == "device":
+        return _stack_batch_payload(fs)
+    if plan in ("device_sharded", "device_sharded_pool"):
+        from repro_torch.core import distributed
+
+        return distributed.stage_sharded_batch(
+            fs, mesh=mesh, data_axes=data_axes,
+            pool_plan="sharded" if plan == "device_sharded_pool"
+            else "replicated")
+    raise ValueError(f"unknown batched execution plan {plan!r}")
 
 
 def run_selection_batch(
@@ -837,6 +943,8 @@ def run_selection_batch(
     top_b: int = 0,
     block_m: Optional[int] = None,
     plan: str = "device",
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
     staged: Optional[dict] = None,
 ) -> list[OptResult]:
     """Solve B independent selection requests in one batched dispatch.
@@ -853,16 +961,18 @@ def run_selection_batch(
     set. Per-request selections, trajectories and evaluation counts equal B
     :func:`run_selection` calls — only the launches are shared. ``staged``
     optionally passes the payload :func:`stage_selection_batch` built for
-    the same ``fs``. Only ``plan="device"`` runs; the batched mesh plans
-    raise ``NotImplementedError`` (ROADMAP A.7).
+    the same ``fs`` and plan.
+
+    ``plan`` composes the batch axis with the execution plans: ``"device"``
+    ((B, n) state on one device) or ``"device_sharded"`` /
+    ``"device_sharded_pool"`` (run by every rank of ``mesh``: (B, n/p)
+    state per rank, every request's gain partials in one collective per
+    scored batch, and each request's result bit for bit its unbatched
+    :func:`run_selection` under the same plan).
     """
     if not fs:
         return []
-    if plan in ("device_sharded", "device_sharded_pool"):
-        raise NotImplementedError(
-            f"batched execution plan {plan!r} is not ported yet: the mesh "
-            f"plans on torch.distributed are ROADMAP item A.7")
-    if plan != "device":
+    if plan not in ("device", "device_sharded", "device_sharded_pool"):
         raise ValueError(f"unknown batched execution plan {plan!r}")
     f0 = fs[0]
     B = len(fs)
@@ -934,17 +1044,27 @@ def run_selection_batch(
                     f"{n_cand} distinct candidates")
         m_widest = cand_rounds.shape[2]
 
-    bm = block_m if block_m is not None \
-        else _device_block_m(n, m_widest, n_batch=B)
-    payload = staged if staged is not None else _stack_batch_payload(fs)
     dev = f0.device
-    sel, traj, n_scored = _select_scan_batched(
-        payload["V"], payload["seed"], payload["aux"],
-        torch.as_tensor(np.array(cand_rounds, np.int64),
-                        device=dev),
-        payload["w0"], torch.as_tensor(ks, dtype=torch.long, device=dev),
-        fn=fn, kind=kind, k=k, top_b=top_b, distance=f0.cfg.distance,
-        policy=policy, block_m=bm, backend=backend, rbf_gamma=rbf_gamma)
+    cand_t = torch.as_tensor(np.array(cand_rounds, np.int64), device=dev)
+    k_eff = torch.as_tensor(ks, dtype=torch.long, device=dev)
+    if plan == "device":
+        bm = block_m if block_m is not None \
+            else _device_block_m(n, m_widest, n_batch=B)
+        payload = staged if staged is not None else _stack_batch_payload(fs)
+        sel, traj, n_scored = _select_scan_batched(
+            payload["V"], payload["seed"], payload["aux"], cand_t,
+            payload["w0"], k_eff, fn=fn, kind=kind, k=k, top_b=top_b,
+            distance=f0.cfg.distance, policy=policy, block_m=bm,
+            backend=backend, rbf_gamma=rbf_gamma)
+    else:
+        from repro_torch.core import distributed
+
+        sel, traj, n_scored = distributed.run_sharded_selection_batch(
+            fs, cand_t, k_eff, kind=kind, k=k, top_b=top_b,
+            m_widest=m_widest, block_m=block_m, mesh=mesh,
+            data_axes=data_axes, backend=backend, rbf_gamma=rbf_gamma,
+            pool_plan="sharded" if plan == "device_sharded_pool"
+            else "replicated", staged=staged)
     sel = sel.cpu().numpy()            # (k, B)
     traj = traj.cpu().numpy()          # (k, B)
     n_scored = n_scored.cpu().numpy()  # (B,)

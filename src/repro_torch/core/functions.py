@@ -104,6 +104,28 @@ def kernel_fused_ok(spec: FnSpec) -> bool:
     return spec.name in ("exemplar", "facility_location")
 
 
+def pad_seed(spec: FnSpec) -> float:
+    """Cache-seed value of the zero padding rows of the mesh plans.
+
+    Exemplar pads 0 (relu(0 − d) = 0: pads never gain). Facility location
+    pads +inf: a zero V row is a real-looking point whose similarity to
+    candidates is positive, so only an infinite cache entry (relu(s − inf)
+    = 0) makes it inert. The additive caches pad 0 and rely on
+    :func:`pad_row_aux` to zero their gain and stat contributions.
+    """
+    return float("inf") if spec.name == "facility_location" else 0.0
+
+
+def pad_row_aux(spec: FnSpec) -> float:
+    """Row-auxiliary value of padding rows: the dead-row sentinel.
+    Facility location and graph cut mark pads +inf (masks their stat rows;
+    graph cut also scores against row_aux, so +inf zeroes pad gains);
+    saturated coverage pads cap = 0 (a zero cap masks gains and stat)."""
+    if spec.name in ("facility_location", "graph_cut"):
+        return float("inf")
+    return 0.0
+
+
 def score_cache_rows(spec: FnSpec, vec, row_aux):
     """The per-row baseline the gain formula subtracts against — what the
     kernel template receives as its ``cache`` operand (graph cut scores
@@ -161,16 +183,20 @@ def fold_vec_rows(spec: FnSpec, vec, dw):
     raise ValueError(f"no vec fold for function {spec.name!r}")
 
 
-def fold_aux(spec: FnSpec, vec, aux, gidx, off, n_loc):
+def fold_aux(spec: FnSpec, vec, aux, gidx, off, n_loc, psum=None):
     """Advance the scalar aux state for winner index ``gidx`` (computed from
     the cache BEFORE the winner's column folds in). Graph cut accumulates
-    its pairwise penalty P ← P + 2·cov_S(w) + s_ww; every other function
-    returns ``aux`` unchanged."""
+    its pairwise penalty P ← P + 2·cov_S(w) + s_ww through an owner-shard
+    gather: ``psum`` adds the owner's entry to every other shard's 0 on the
+    mesh plans (None on one device). Every other function returns ``aux``
+    unchanged and calls no collective."""
     if spec.name != "graph_cut":
         return aux
     rel = gidx - off
     own = (rel >= 0) & (rel < n_loc)
     vw = torch.where(own, vec[torch.clamp(rel, 0, n_loc - 1)], 0.0)
+    if psum is not None:
+        vw = psum(vw)
     return aux + 2.0 * vw + SIM_SELF
 
 
@@ -219,6 +245,16 @@ def sieve_fold_rows(spec: FnSpec, caches, dvec, accept, out=None):
     may be ``caches`` itself (an in-place fold)."""
     folded = fold_vec_rows(spec, caches, dvec.unsqueeze(-2))
     return torch.where(accept.unsqueeze(-1), folded, caches, out=out)
+
+
+def gains_formula(V, cands, mincache, pair, policy, n_total=None):
+    """Δ(c_j | S) = |V|⁻¹ Σ_i relu(m_i − d(v_i, c_j)) for all candidates:
+    the exemplar instance of :func:`gains_formula_spec`, under the name the
+    standalone distributed evaluators use. ``n_total`` overrides the |V|
+    normalizer (the global n when V is one row shard)."""
+    D = pair(V, cands, policy)  # (n, m)
+    gains = torch.sum(torch.clamp_min(mincache[:, None] - D, 0.0), dim=0)
+    return gains / (V.shape[0] if n_total is None else n_total)
 
 
 def _point_distances_block(V, X, distance: str, policy: PrecisionPolicy):

@@ -11,6 +11,12 @@ observation ("optimizer-aware", §IV-A). Three evaluation styles are used:
   selection engine (:mod:`repro_torch.core.engine`): gains, argmax and the
   cache update never leave it, and dense/stochastic rounds never wait on
   the host.
+* **mesh plans** — ``mode="device_sharded"`` / ``"device_sharded_pool"``
+  (all three strategies) and ``"greedi"`` (greedy) run the same rounds on
+  every rank of a ``torch.distributed`` mesh, with V and the cache
+  row-sharded (:mod:`repro_torch.core.distributed`); the sieve family's
+  ``mode="device_sharded"`` column-shards the sieve table. Every rank calls
+  the optimizer with the same arguments.
 
 The min-distance cache obeys the recurrence
 
@@ -35,8 +41,8 @@ import torch
 from repro_torch.core.engine import OptResult, run_selection, validate_candidates
 from repro_torch.core.functions import ExemplarClustering, SubmodularFunction
 
-#: Plans of the reference that this package does not run yet (ROADMAP A.7);
-#: they reach :func:`run_selection`, which refuses them by name.
+#: The mesh plans (:mod:`repro_torch.core.distributed`), routed through
+#: :func:`run_selection` like ``"device"``.
 _MESH_PLANS = ("device_sharded", "device_sharded_pool", "greedi")
 
 
@@ -59,12 +65,17 @@ def greedy(
     mode: str = "mincache",
     candidates: Optional[np.ndarray] = None,
     block_m: Optional[int] = None,
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
     """Algorithm 1 of the paper. ``mode`` picks the evaluation style:
 
     ``"mincache"`` (alias ``"host"``) — host loop over rounds, device gains.
     ``"multiset"`` — paper-faithful: pack {S ∪ {c}} ∀c and call the engine.
     ``"device"``  — all k rounds on the device with no per-round host sync.
+    ``"device_sharded"`` / ``"device_sharded_pool"`` / ``"greedi"`` — the
+    mesh plans over ``mesh`` (a ``DeviceMesh``; None: 1-D over the default
+    process group), V row-sharded over ``data_axes``.
     """
     n = f.n
     cand_idx = np.arange(n) if candidates is None \
@@ -79,7 +90,7 @@ def greedy(
         # ONE candidate row: the engine scores it in every round
         return run_selection(f, kind="dense", k=k,
                              cand_rounds=cand_idx[None, :], plan=mode,
-                             block_m=block_m)
+                             block_m=block_m, mesh=mesh, data_axes=data_axes)
     selected: list[int] = []
     traj: list[float] = []
     evals = 0
@@ -117,6 +128,8 @@ def lazy_greedy(
     k: int,
     batch: int = 256,
     mode: str = "host",
+    mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
     """CELF: maintain stale upper bounds (submodularity ⇒ gains only shrink).
 
@@ -127,7 +140,9 @@ def lazy_greedy(
     the *same* policy, selections AND ``evaluations`` agree across modes.
 
     ``mode="device"`` runs CELF on the device: the stale bounds stay there
-    and each iteration re-scores the top-``batch`` of them.
+    and each iteration re-scores the top-``batch`` of them; the mesh plans
+    row-shard V and the cache over ``mesh``, with the bound state
+    replicated.
     """
     if k > f.n:
         raise ValueError(f"cannot select k={k} exemplars from n={f.n}")
@@ -136,7 +151,8 @@ def lazy_greedy(
     if k == 0:
         return OptResult([], 0.0, [], 0)
     if mode == "device" or mode in _MESH_PLANS:
-        return run_selection(f, kind="lazy", k=k, top_b=batch, plan=mode)
+        return run_selection(f, kind="lazy", k=k, top_b=batch, plan=mode,
+                             mesh=mesh, data_axes=data_axes)
     if mode != "host":
         raise ValueError(f"unknown lazy_greedy mode {mode!r}")
     n = f.n
@@ -171,6 +187,7 @@ def lazy_greedy(
 def stochastic_greedy(
     f: SubmodularFunction, k: int, eps: float = 0.05, seed: int = 0,
     mode: str = "host", block_m: Optional[int] = None,
+    mesh=None, data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
     """Sample ⌈(n/k)·ln(1/ε)⌉ candidates per round; (1−1/e−ε) in expectation.
 
@@ -193,7 +210,8 @@ def stochastic_greedy(
         [rng.choice(n, size=m_draw, replace=False) for _ in range(k)])
     if mode == "device" or mode in _MESH_PLANS:
         return run_selection(f, kind="stochastic", k=k, cand_rounds=samples,
-                             plan=mode, block_m=block_m)
+                             plan=mode, block_m=block_m, mesh=mesh,
+                             data_axes=data_axes)
     if mode != "host":
         raise ValueError(f"unknown stochastic_greedy mode {mode!r}")
     cache = f.init_cache()
@@ -261,14 +279,16 @@ def _stream_blocks(f: ExemplarClustering, order: Optional[Sequence[int]],
 
 def _run_sieve(f: SubmodularFunction, k: int, eps: float, variant: str,
                order, seed: int, block_size: int, mode: str,
-               s_max: Optional[int], mesh=None) -> OptResult:
-    """Drive a sieve-table engine over the stream under the host or device
-    plan (``mesh`` / ``mode="device_sharded"`` raise, naming ROADMAP A.7)."""
+               s_max: Optional[int], mesh=None,
+               data_axes: Sequence[str] = ("data",)) -> OptResult:
+    """Drive a sieve-table engine over the stream under the host, device or
+    column-sharded plan (``mode="device_sharded"`` or a ``mesh``)."""
     from repro_torch.core.streaming import make_sieve_engine
 
     idx = _stream(f, order, seed)
     eng = make_sieve_engine(f, k, eps, variant=variant, mode=mode,
-                            s_max=s_max, block_size=block_size, mesh=mesh)
+                            s_max=s_max, block_size=block_size, mesh=mesh,
+                            data_axes=data_axes)
     for s in range(0, len(idx), block_size):
         ib = idx[s:s + block_size]
         eng.offer(ib, f.V[torch.as_tensor(ib, device=f.device)])
@@ -281,16 +301,19 @@ def sieve_streaming(
     order: Optional[Sequence[int]] = None, seed: int = 0,
     block_size: int = 64, mode: str = "host",
     s_max: Optional[int] = None, mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
     """SieveStreaming [4]: thresholds (1+ε)^i ∈ [m, 2km], m = max singleton.
 
     ``mode="device"`` runs each stream block on the device with no host read
-    between its elements; ``mode="host"`` is the per-element mirror.
+    between its elements; ``mode="host"`` is the per-element mirror;
+    ``mode="device_sharded"`` (or a ``mesh``) column-shards the sieve table
+    over the mesh's ``data_axes``, O(S_max·n/p) state per rank.
     ``s_max`` overrides the sieve-table capacity (see
     :mod:`repro_torch.core.streaming`).
     """
     return _run_sieve(f, k, eps, "sieve", order, seed, block_size, mode,
-                      s_max, mesh=mesh)
+                      s_max, mesh=mesh, data_axes=data_axes)
 
 
 def sieve_streaming_pp(
@@ -298,14 +321,16 @@ def sieve_streaming_pp(
     order: Optional[Sequence[int]] = None, seed: int = 0,
     block_size: int = 64, mode: str = "host",
     s_max: Optional[int] = None, mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
     """SieveStreaming++ [19]: prune sieves below LB = best current value.
 
     LB moves after every accept, so the grid window is re-derived per
-    element, on the device under ``mode="device"``.
+    element, on the device under ``mode="device"`` (and on every rank under
+    ``mode="device_sharded"``).
     """
     return _run_sieve(f, k, eps, "pp", order, seed, block_size, mode, s_max,
-                      mesh=mesh)
+                      mesh=mesh, data_axes=data_axes)
 
 
 def three_sieves(
@@ -364,6 +389,7 @@ def salsa(
     order: Optional[Sequence[int]] = None, seed: int = 0,
     block_size: int = 64, mode: str = "host",
     s_max: Optional[int] = None, mesh=None,
+    data_axes: Sequence[str] = ("data",),
 ) -> OptResult:
     """Salsa [20], simplified: an ensemble of dense-threshold passes.
 
@@ -375,7 +401,7 @@ def salsa(
     lowest exponent (see :mod:`repro_torch.core.streaming`).
     """
     return _run_sieve(f, k, eps, "salsa", order, seed, block_size, mode,
-                      s_max, mesh=mesh)
+                      s_max, mesh=mesh, data_axes=data_axes)
 
 
 OPTIMIZERS = {

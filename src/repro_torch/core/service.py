@@ -44,7 +44,7 @@ import asyncio
 import dataclasses
 import itertools
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -85,16 +85,24 @@ class StreamIngestionService:
     reports; the service retains accepted elements' vectors (pruned to the
     live member tables at snapshot time) so exemplars can be returned for
     elements that are not ground-set rows.
+
+    ``mesh`` / ``mode="device_sharded"`` wrap the column-sharded engine
+    (:class:`~repro_torch.core.streaming.DeviceSieveEngine`): every rank
+    runs a service and offers the same elements in the same order. A
+    snapshot is then a collective, so it first drains the queue: every rank
+    takes it at the end of what it was offered.
     """
 
     def __init__(self, f: SubmodularFunction, k: int, eps: float = 0.1,
                  variant: str = "sieve", mode: str = "device",
                  block_size: int = 64, s_max: Optional[int] = None,
-                 max_pending: int = 1024, mesh=None, overlap: bool = True):
+                 max_pending: int = 1024, mesh=None,
+                 data_axes: Sequence[str] = ("data",), overlap: bool = True):
         self._engine = make_sieve_engine(f, k, eps, variant=variant,
                                          mode=mode, s_max=s_max,
                                          block_size=block_size, mesh=mesh,
-                                         overlap=overlap)
+                                         data_axes=data_axes, overlap=overlap)
+        self._sharded = getattr(self._engine, "mesh", None) is not None
         self._dim = f.dim
         self._block = block_size
         self._max_pending = max_pending
@@ -180,6 +188,8 @@ class StreamIngestionService:
             raise RuntimeError("service was never started")
         if self._error is not None:
             raise RuntimeError("ingestion worker failed") from self._error
+        if self._sharded and self._task is not None:
+            await self.drain()
         async with self._lock:
             # Read, prune and gather in ONE thread hop while holding the
             # engine lock: the live-member set, the retention map and the
@@ -554,13 +564,28 @@ run_selection_batch` per bucket, at the bucket's own batch size, in a
 
     ``device`` is where the tenants' ground sets go: ``"cuda"`` unless the
     caller names another (with no GPU and no device this raises).
+
+    ``plan`` / ``mesh`` / ``data_axes``: on ``"device_sharded"`` and
+    ``"device_sharded_pool"`` each bucket is one batched dispatch across the
+    mesh, (B, n/p) state per rank. Every rank runs a service and submits the
+    same requests in the same order; the bucket the worker forms from what
+    is queued must then be the same on every rank, which each dispatch
+    checks with one small all-gather before it starts.
     """
 
     def __init__(self, cfg: Optional[EvalConfig] = None, *,
                  max_batch: int = 64, max_pending: int = 1024,
-                 linger_s: float = 0.0, device=None):
+                 linger_s: float = 0.0, device=None, plan: str = "device",
+                 mesh=None, data_axes: Sequence[str] = ("data",)):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if plan not in ("device", "device_sharded", "device_sharded_pool"):
+            raise ValueError(
+                f"unknown batched execution plan {plan!r}; the service "
+                f"serves 'device', 'device_sharded' or 'device_sharded_pool'")
+        self._plan = plan
+        self._mesh = mesh
+        self._data_axes = tuple(data_axes)
         self._cfg = cfg if cfg is not None else EvalConfig()
         self._max_batch = max_batch
         self._max_pending = max_pending
@@ -714,9 +739,31 @@ run_selection_batch` per bucket, at the bucket's own batch size, in a
 
         r0 = reqs[0]
         fs, ks, cand, k_scan = self._build_bucket(reqs)
+        if self._plan != "device":
+            self._check_same_bucket(reqs)
         res = eng.run_selection_batch(
             fs, kind=r0.kind, k=k_scan, ks=ks, cand_rounds=cand,
-            top_b=r0.top_b)
+            top_b=r0.top_b, plan=self._plan, mesh=self._mesh,
+            data_axes=self._data_axes)
         self.stats["dispatches"] += 1
         self.stats["batched_requests"] += len(reqs)
         return res
+
+    def _check_same_bucket(self, reqs: list[_SelectionRequest]) -> None:
+        """Raise unless every rank of the mesh is about to dispatch the
+        same bucket (signature, k and seed of each request, and a checksum
+        of its ground set): a mismatch would pair one rank's collectives
+        with another bucket's."""
+        import torch.distributed as dist
+
+        from repro_torch.core import distributed
+
+        sh = distributed.resolve_mesh(self._mesh, self._data_axes)
+        mine = [(r.signature(), r.k, r.seed,
+                 float(np.sum(r.X, dtype=np.float64))) for r in reqs]
+        every: list = [None] * sh.p
+        dist.all_gather_object(every, mine, group=sh.group)
+        if any(b != mine for b in every):
+            raise RuntimeError(
+                "the ranks formed different buckets; under a mesh plan every "
+                "rank must submit the same requests in the same order")

@@ -48,8 +48,16 @@ ground-set axis (:func:`_mean_rows`, and the batched sieve kernel) take each
 partition at its standalone engine's shape, so a partition is bit for bit
 its standalone engine.
 
-The mesh-sharded plan of the reference (``make_sharded_offer_scan``) is
-ROADMAP item A.7.
+The mesh-sharded plan (:func:`make_sharded_offer_scan`) column-shards the
+(S_max, n) table, the seed, the row auxiliary and each element's distance
+row over the data axes of a ``torch.distributed`` mesh: each rank holds
+(S_max, n/p). It runs the identical :func:`_element_step`, with the step's
+reductions over the ground set — the gains of the seed and the table, the
+sieve values, ++'s lower bound — replaced by per-shard partials added in
+shard order (:func:`repro_torch.core.distributed.ordered_sum`): one
+collective per element, two for ++. Thresholds, sizes, members and the
+evaluation counter stay replicated: every rank computes them from the same
+bits.
 """
 from __future__ import annotations
 
@@ -223,17 +231,18 @@ def _mean_rows(M: torch.Tensor) -> torch.Tensor:
                         for p in range(M.shape[0])])
 
 
-def table_values(caches: torch.Tensor, c: StepConsts, fn: FnSpec
-                 ) -> torch.Tensor:
+def table_values(caches: torch.Tensor, c: StepConsts, fn: FnSpec,
+                 mean_rows=_mean_rows) -> torch.Tensor:
     """Per-sieve f-values of (…, S_max, n) cache rows — shared by the
     element step and every engine's ``best``, so equal caches give
-    bit-equal values."""
+    bit-equal values. ``mean_rows`` is the row mean (the sharded engine's
+    sums its shards' partials)."""
     return fx.value_from_stat(fn, c.v0,
-                              _mean_rows(fx.stat_rows(fn, caches, c.row_aux)))
+                              mean_rows(fx.stat_rows(fn, caches, c.row_aux)))
 
 
 def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
-                  dvec, valid):
+                  dvec, valid, *, mean_rows=_mean_rows, shard_sums=None):
     """The per-element sieve-table transition — ONE definition.
 
     ``idx`` (…,) i32 stream ids, ``dvec`` (…, n) f32 distance rows,
@@ -244,6 +253,16 @@ def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
     buffer instead of allocating a new table each step); the small fields
     are rebound. Returns ``(new_state, accepted_anywhere (…,))``. Makes no
     host read.
+
+    The step's reductions over the ground-set axis are injectable, so the
+    mesh-sharded engine runs this transition on (S_max, n/p) column shards.
+    ``shard_sums(caches, dvec, c) -> (single, gains_pre, stats_pre)`` takes
+    the step's first reductions in one collective: the gains of the seed
+    and of the pre-rebuild table, and the table's stat-row means (None for
+    Salsa, which reads no values). A claimed slot's cache is the seed, so
+    its gain is ``single`` and its stat mean is ``c.v0``. ``mean_rows(M)``
+    is the trailing-axis mean of ++'s post-fold values. Everything else is
+    O(S_max) state.
     """
     k = spec.k
     fn = spec.fn
@@ -260,7 +279,10 @@ def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
     # ``where(claim, single, ...)`` recovers the post-rebuild gains without
     # a second launch.
     use_kernel = spec.backend != "torch"
-    if use_kernel:
+    stats_pre = None
+    if shard_sums is not None:
+        single, gains_pre, stats_pre = shard_sums(caches, dvec, c)
+    elif use_kernel:
         from repro_torch.kernels import ops as kops
 
         fold, affine = fx.kernel_template(fn)
@@ -313,7 +335,7 @@ def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
 
     # offer to every sieve: marginal gain vs each (post-rebuild) cache, one
     # accept rule
-    if use_kernel:
+    if use_kernel or shard_sums is not None:
         gains = torch.where(claim, single.unsqueeze(-1), gains_pre)
     else:
         gains = _mean_rows(fx.sieve_gain_rows(fn, caches, dvec, c.row_aux))
@@ -324,7 +346,11 @@ def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
         rate = torch.where(sizes < (k + 1) // 2, 0.5, 1.0 / (2.0 * math.e))
         need = rate * taus / c.k
     else:
-        values = table_values(caches, c, fn)
+        if stats_pre is None:
+            values = table_values(caches, c, fn)
+        else:
+            values = fx.value_from_stat(fn, c.v0,
+                                        torch.where(claim, c.v0, stats_pre))
         need = (taus / 2.0 - values) / torch.clamp_min(k - sizes, 1)
     accept = valid.unsqueeze(-1) & active & (sizes < k) & (gains >= need)
     fx.sieve_fold_rows(fn, caches, dvec, accept, out=caches)
@@ -333,7 +359,7 @@ def _element_step(spec: SieveSpec, c: StepConsts, state: SieveState, idx,
         idx.unsqueeze(-1).unsqueeze(-1), members)
     sizes = sizes + accept.to(torch.int32)
     if spec.variant == "pp":
-        vals_new = table_values(caches, c, fn)
+        vals_new = table_values(caches, c, fn, mean_rows)
         lb = torch.maximum(lb, torch.amax(
             torch.where(active, vals_new, -math.inf), dim=-1))
 
@@ -385,7 +411,10 @@ class _EngineIO:
         self.overlap = overlap
         self.max_in_flight = max_in_flight
         self.device = f.device
-        self._c = step_consts(f, spec)
+        self._c = self._step_consts()
+
+    def _step_consts(self) -> StepConsts:
+        return step_consts(self.f, self.spec)
 
     def _validate_ids(self, idx) -> np.ndarray:
         """Stream ids live in the int32 member table; ids outside its range
@@ -442,7 +471,7 @@ class _SieveEngineBase(_EngineIO):
                  overlap: bool = True, max_in_flight: int = 4):
         super().__init__(f, spec, block_size, overlap, max_in_flight)
         self._true = torch.ones((), dtype=torch.bool, device=self.device)
-        self.state = init_state(f.n, spec, self.device)
+        self.state = self._initial_state()
         # device state counts in int32; folding into a Python int at drain
         # points keeps unbounded streams (the service's live-sensor case)
         # exact. Each element adds at most S_max evals, so int32 headroom
@@ -477,6 +506,12 @@ class _SieveEngineBase(_EngineIO):
             return _host(torch.cat(masks))
         return np.concatenate(masks)
 
+    def _initial_state(self) -> SieveState:
+        return init_state(self.f.n, self.spec, self.device)
+
+    def _values(self) -> torch.Tensor:
+        return table_values(self.state.caches, self._c, self.spec.fn)
+
     def _consume(self, idxs: torch.Tensor, dmat: torch.Tensor, nb: int):
         """Advance the engine by the ``nb`` live elements of one padded
         block; returns their accept mask."""
@@ -499,8 +534,7 @@ class _SieveEngineBase(_EngineIO):
         active = _host(self.state.active)
         if not active.any():
             return [], 0.0
-        vals = np.where(active, _host(table_values(
-            self.state.caches, self._c, self.spec.fn)), -np.inf)
+        vals = np.where(active, _host(self._values()), -np.inf)
         b = int(np.argmax(vals))
         size = int(_host(self.state.sizes)[b])
         return [int(i) for i in _host(self.state.members)[b, :size]], \
@@ -533,15 +567,154 @@ class DeviceSieveEngine(_SieveEngineBase):
     """Device-resident sieve table: a block's elements run back to back
     with no host read between them (the reference's one scan dispatch per
     block). State never leaves the device between blocks beyond the accept
-    masks and the evaluation-counter fold that ``offer`` reads."""
+    masks and the evaluation-counter fold that ``offer`` reads.
+
+    ``mesh`` column-shards the (S_max, n) table — and the cache seed, the
+    row auxiliary and each element's distance row — over the mesh's
+    ``data_axes`` (:func:`make_sharded_offer_scan`): each rank, running the
+    same engine calls on the same stream, holds (S_max, n/p), and the full
+    table never exists on any rank. The padded rows carry the function's
+    pad sentinels, which add exactly 0 to every sum. ``offer`` and ``best``
+    are collectives under a mesh; ``evaluations`` and ``member_ids`` read
+    replicated state only."""
+
+    def __init__(self, f, spec: SieveSpec, block_size: int = 64,
+                 mesh=None, data_axes: Sequence[str] = ("data",),
+                 overlap: bool = True, max_in_flight: int = 4):
+        # mesh geometry first: the base constructor asks the hooks for the
+        # step constants and the table, which must be born sharded
+        self.mesh = mesh
+        if mesh is None:
+            self._offer_fn = _offer_loop(spec, f.device)
+        else:
+            from repro_torch.core import distributed
+
+            self._shards = distributed.resolve_mesh(mesh, data_axes)
+            self._placed = distributed._placed_sharded(f, self._shards)
+            self._mean_rows = _sharded_mean_rows(self._shards, f.n, f.device)
+            self._offer_fn = make_sharded_offer_scan(
+                self._shards, spec=spec, n_total=f.n, device=f.device)
+        super().__init__(f, spec, block_size, overlap=overlap,
+                         max_in_flight=max_in_flight)
+
+    def _step_consts(self) -> StepConsts:
+        if self.mesh is None:
+            return super()._step_consts()
+        # this rank's columns of the seed and the auxiliary; the baseline
+        # is the global mean of the seed's stat row
+        seed, aux = self._placed["seed_sh"], self._placed["aux_sh"]
+        return step_consts(self.f, self.spec)._replace(
+            seed=seed, row_aux=aux,
+            v0=self._mean_rows(fx.stat_rows(self.spec.fn, seed, aux)))
+
+    def _initial_state(self) -> SieveState:
+        if self.mesh is None:
+            return super()._initial_state()
+        return init_state(self._shards.n_loc(self.f.n), self.spec,
+                          self.device)
+
+    def _distance_rows(self, X) -> torch.Tensor:
+        if self.mesh is None:
+            return super()._distance_rows(X)
+        # each rank's own columns of the (block_size, n) product: an entry
+        # depends on its ground row alone, as in the unsharded product
+        return fx._point_distances_block(
+            self._placed["V_sh"], X, self.f.cfg.distance,
+            self.f.cfg.resolved_policy()).to(torch.float32)
+
+    def _values(self) -> torch.Tensor:
+        if self.mesh is None:
+            return super()._values()
+        # the pad sentinels add exactly 0 to every stat sum, so only the
+        # normaliser must be the real n, which the sharded mean divides by
+        return table_values(self.state.caches, self._c, self.spec.fn,
+                            self._mean_rows)
 
     def _consume(self, idxs, dmat, nb) -> torch.Tensor:
+        self.state, acc = self._offer_fn(self.state, self._c, idxs, dmat, nb)
+        return acc
+
+
+def _offer_loop(spec: SieveSpec, device, **hooks):
+    """``offer(state, c, idxs, dmat, nb) -> (state, accepted (nb,))``: the
+    element step over the ``nb`` live elements of a block, back to back,
+    with no host read; ``hooks`` are the step's reductions over n."""
+    true = torch.ones((), dtype=torch.bool, device=device)
+
+    def offer(state, c, idxs, dmat, nb):
         accepted = []
         for b in range(nb):
-            self.state, acc = _element_step(self.spec, self._c, self.state,
-                                            idxs[b], dmat[b], self._true)
+            state, acc = _element_step(spec, c, state, idxs[b], dmat[b], true,
+                                       **hooks)
             accepted.append(acc)
-        return torch.stack(accepted)
+        return state, torch.stack(accepted)
+
+    return offer
+
+
+def _sharded_mean_rows(shards, n_total: int, device):
+    """Row means of column-sharded rows: each shard's row sums, added in
+    shard order, over the real n."""
+    from repro_torch.core import distributed
+
+    n_t = torch.tensor(float(n_total), dtype=torch.float32, device=device)
+
+    def mean_rows(M):
+        return distributed.ordered_sum(shards, torch.sum(M, dim=-1)) / n_t
+
+    return mean_rows
+
+
+def make_sharded_offer_scan(mesh, data_axes: Sequence[str] = ("data",), *,
+                            spec: SieveSpec, n_total: int, device):
+    """Build the column-sharded engine's block consumer.
+
+    Returns ``offer(state, c, idxs, dmat, nb) -> (state, accepted (nb,))``
+    (:func:`_offer_loop`), with ``state.caches`` this rank's (S_max, n/p)
+    columns, ``c`` the step constants over this rank's seed and row
+    auxiliary (``v0`` the global baseline), and ``dmat`` this rank's
+    columns of the block's distance rows. The step's reductions over n
+    become shard partials added in shard order. An element's gains (the
+    sieve kernel launched on this rank's columns with the global
+    ``n_total`` on the ``cuda`` backend, row sums otherwise) and the
+    table's stat-row sums travel in ONE collective of O(S_max) floats;
+    ++ adds one more for the values after its fold.
+    """
+    from repro_torch.core import distributed
+
+    shards = distributed.resolve_mesh(mesh, data_axes)
+    fn = spec.fn
+    n_t = torch.tensor(float(n_total), dtype=torch.float32, device=device)
+    want_stats = spec.variant != "salsa"
+    kernel = None
+    if spec.backend != "torch":
+        from repro_torch.kernels import ops as kops
+
+        fold, affine = fx.kernel_template(fn)
+
+        def kernel(caches, dvec, seed):
+            return kops.sieve_gains(caches, dvec, seed=seed, n_total=n_total,
+                                    fold=fold, score_affine=affine)
+
+    def shard_sums(caches, dvec, c):
+        if kernel is not None:
+            parts = [kernel(caches, dvec, c.seed)]      # already over n
+        else:
+            parts = [torch.sum(fx.sieve_gain_rows(
+                fn, rows, dvec, c.row_aux), dim=-1)
+                for rows in (c.seed[None, :], caches)]
+        r = caches.shape[0]
+        if want_stats:
+            parts.append(torch.sum(fx.stat_rows(fn, caches, c.row_aux),
+                                   dim=-1))
+        out = distributed.ordered_sum(shards, torch.cat(parts))
+        gains = out[:r + 1] if kernel is not None else out[:r + 1] / n_t
+        stats = out[r + 1:] / n_t if want_stats else None
+        return gains[0], gains[1:], stats
+
+    return _offer_loop(spec, device,
+                       mean_rows=_sharded_mean_rows(shards, n_total, device),
+                       shard_sums=shard_sums)
 
 
 class BatchedSieveEngine(_EngineIO):
@@ -703,6 +876,7 @@ def make_sieve_engine(f, k: int, eps: float, variant: str = "sieve",
                       block_size: int = 64,
                       backend: Optional[str] = None,
                       mesh=None,
+                      data_axes: Sequence[str] = ("data",),
                       overlap: bool = True,
                       max_in_flight: int = 4) -> _SieveEngineBase:
     """Build a sieve engine under an execution plan (``host`` | ``device``).
@@ -717,21 +891,29 @@ def make_sieve_engine(f, k: int, eps: float, variant: str = "sieve",
     plans, so parity stays structural. A function with no kernel template
     scores through torch.
 
-    ``mesh`` or ``mode="device_sharded"`` (the reference's column-sharded
-    table) raise ``NotImplementedError``: the mesh plans on
-    ``torch.distributed`` are ROADMAP item A.7.
+    ``mesh`` (or ``mode="device_sharded"``, whose default is a 1-D mesh
+    over the default process group) column-shards the sieve table over
+    ``data_axes``: see :class:`DeviceSieveEngine`. Every rank builds the
+    engine and feeds it the same stream. The host mirror is the
+    per-element reference and takes no mesh.
     """
-    if mesh is not None or mode == "device_sharded":
-        raise NotImplementedError(
-            "the mesh-sharded sieve plan is not ported yet: the mesh plans "
-            "on torch.distributed are ROADMAP item A.7")
     spec = make_spec(k, eps, variant, s_max,
                      backend=_resolve_backend(f, backend), fn=f.spec)
     if mode == "host":
+        if mesh is not None:
+            raise ValueError(
+                "the host mirror is the per-element reference; it does not "
+                "take a mesh")
         return HostSieveMirror(f, spec, block_size=block_size,
                                overlap=overlap, max_in_flight=max_in_flight)
+    if mode == "device_sharded":
+        from repro_torch.core import distributed
+
+        mesh = distributed.resolve_mesh(mesh, data_axes)
+        mode = "device"
     if mode == "device":
-        return DeviceSieveEngine(f, spec, block_size=block_size,
-                                 overlap=overlap, max_in_flight=max_in_flight)
+        return DeviceSieveEngine(f, spec, block_size=block_size, mesh=mesh,
+                                 data_axes=data_axes, overlap=overlap,
+                                 max_in_flight=max_in_flight)
     raise ValueError(f"unknown streaming mode {mode!r}; 'host', 'device' "
                      f"or 'device_sharded'")

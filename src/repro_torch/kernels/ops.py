@@ -164,8 +164,11 @@ def exemplar_eval(
     variant: str = "flat",
     memory_budget_bytes: Optional[int | str] = None,  # int | None | "auto"
     rbf_gamma: Optional[float] = None,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
-    """L(S_j ∪ {e0}) for the packed multiset — (l,) float32."""
+    """L(S_j ∪ {e0}) for the packed multiset — (l,) float32. ``n_total``
+    overrides the |V| normalizer (the global ground-set size when V is one
+    row-shard)."""
     if mode not in ("fused", "two_pass"):
         raise ValueError(f"unknown mode {mode!r}")
     n, d = V.shape
@@ -174,6 +177,7 @@ def exemplar_eval(
     lengths = lengths.to(torch.int32).contiguous()
     d_e0 = d_e0.to(torch.float32).contiguous()
     kc = kernel_config(k, d, policy).k_chunk if V.is_cuda else None
+    n_total = n if n_total is None else n_total
     outs = []
     for start, stop in plan_chunks(l, n, k, d, policy, mode,
                                    memory_budget_bytes):
@@ -182,11 +186,12 @@ def exemplar_eval(
             if variant == "flat":
                 Sc = Sc.permute(1, 0, 2).contiguous()  # k-major (interleave)
             outs.append(_ee.fused_eval(
-                V, Sc, lc, d_e0, n_total=n, policy=policy, k_chunk=kc,
+                V, Sc, lc, d_e0, n_total=n_total, policy=policy, k_chunk=kc,
                 layout=variant, rbf_gamma=rbf_gamma))
         else:
-            W = _ee.two_pass_eval(V, Sc, lc, d_e0, n_total=n, policy=policy,
-                                  k_chunk=kc, rbf_gamma=rbf_gamma)
+            W = _ee.two_pass_eval(V, Sc, lc, d_e0, n_total=n_total,
+                                  policy=policy, k_chunk=kc,
+                                  rbf_gamma=rbf_gamma)
             # second pass: the paper's W·1 row reduction
             outs.append(torch.sum(W, dim=1))
     return torch.cat(outs) if len(outs) > 1 else outs[0]

@@ -377,11 +377,13 @@ def test_batched_rejects_mixed_signatures():
     fb = FUNCTIONS["feature_based"](fs[0].V)
     with pytest.raises(ValueError, match="host execution plans"):
         run_selection_batch([fb, fb], kind="dense", k=2)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        eng.make_batched_lazy_step_val(None, None, None, 8, 2, None)
     for plan in ("device_sharded", "device_sharded_pool"):
-        with pytest.raises(NotImplementedError, match="A.7"):
+        with pytest.raises(RuntimeError, match="init_process_group"):
             run_selection_batch(fs[:2], kind="dense", k=2, plan=plan)
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            eng.stage_selection_batch(fs[:2], plan=plan)
+    with pytest.raises(ValueError, match="unknown batched execution plan"):
+        run_selection_batch(fs[:2], kind="dense", k=2, plan="greedi")
 
 
 def test_batched_rejects_bad_ks():

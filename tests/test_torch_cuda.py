@@ -464,3 +464,90 @@ def test_segment_edge_shapes_match_plain(dev, policy):
         gp, ncp = mg.gain_update_eval_plain(V, C, cache, w, wv, **kw)
         _band(g, gp, BANDS[policy], ns)
         _band(nc, ncp, BANDS[policy], ns)
+
+
+def _mesh_rank(rank, world, X, k):
+    """One gloo rank of the mesh test, on the one card."""
+    torch.cuda.set_device(0)
+    from repro_torch.core import EvalConfig, ExemplarClustering, greedy
+    from repro_torch.kernels import ops
+
+    f = ExemplarClustering(X, EvalConfig(backend="cuda"))
+    ops.LAUNCHES.clear()
+    res = greedy(f, k, mode="device_sharded")
+    return res, dict(ops.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_dense_sharded_on_two_gloo_ranks_equals_device_plan(dev, tmp_path):
+    """Two gloo ranks on cuda:0 run dense greedy under ``device_sharded`` at
+    n = 8 192: both return the device plan's selections and evaluations,
+    and each launched the fused gain kernel once per round on its rows."""
+    from repro_torch.core import EvalConfig, ExemplarClustering, greedy
+    from repro_torch.core.distributed import spawn_local
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import _build
+
+    _build.build_all(["marginal_gain"])      # once, before the ranks start
+    k = 8
+    X, _ = blobs(8192, 24, centers=12, seed=13)
+    ref = greedy(ExemplarClustering(X, EvalConfig(backend="cuda")), k,
+                 mode="device")
+    ranks = spawn_local(_mesh_rank, 2, store_dir=tmp_path, args=(X, k),
+                        timeout=300)
+    for res, launches in ranks:
+        assert res.indices == ref.indices
+        assert res.evaluations == ref.evaluations
+        np.testing.assert_allclose(res.trajectory, ref.trajectory, rtol=1e-5,
+                                   atol=1e-5)
+        assert launches.get("gain_update_eval") == k
+
+
+def _evaluator_rank(rank, world, n):
+    """One gloo rank of the standalone-evaluator test, on the one card."""
+    torch.cuda.set_device(0)
+    from repro_torch.core import EvalConfig
+    from repro_torch.core import distributed
+    from repro_torch.kernels import ops
+
+    V, S, lengths, cache, _ = _problem("cuda", n=n, seed=3)
+    d_e0 = torch.sum(V * V, dim=1)
+    sh = distributed.resolve_mesh(None, ("data",))
+    cfg = EvalConfig(backend="cuda")
+    ops.LAUNCHES.clear()
+    losses = distributed.make_distributed_eval(sh, cfg)(
+        distributed.shard_ground_set(V, sh), S, lengths,
+        distributed.shard_rows(d_e0, sh), n_total=n)
+    gains = distributed.make_distributed_gains(sh, cfg)(
+        distributed.shard_ground_set(V, sh), V[:257],
+        distributed.shard_rows(cache, sh), n_total=n)
+    torch.cuda.synchronize()
+    return losses.cpu(), gains.cpu(), dict(ops.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_standalone_evaluators_launch_kernels_on_two_gloo_ranks(dev,
+                                                                 tmp_path):
+    """On the ``cuda`` backend, ``make_distributed_eval`` and
+    ``make_distributed_gains`` launch the exemplar-eval and gain kernels on
+    each rank's rows with the global n (n = 2 051, which 2 does not
+    divide), and the shards' sum is within the fp32 band of the kernels
+    launched once on the whole ground set."""
+    from repro_torch.core.distributed import spawn_local
+    from repro_torch.kernels import _build, ops
+
+    _build.build_all(["exemplar_eval", "marginal_gain"])
+    n = 2051
+    V, S, lengths, cache, scale = _problem(dev, n=n, seed=3)
+    d_e0 = torch.sum(V * V, dim=1)
+    ref_l = ops.exemplar_eval(V, S, lengths, d_e0)
+    ref_g = ops.marginal_gain(V, V[:257], cache)
+    ranks = spawn_local(_evaluator_rank, 2, store_dir=tmp_path, args=(n,),
+                        timeout=300)
+    for losses, gains, launches in ranks:
+        assert torch.equal(losses, ranks[0][0])
+        assert torch.equal(gains, ranks[0][1])
+        _band(losses, ref_l, BANDS["fp32"], scale)
+        _band(gains, ref_g, BANDS["fp32"], scale)
+        assert launches.get("fused_eval") == 1
+        assert launches.get("gain_eval") == 1

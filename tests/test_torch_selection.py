@@ -107,11 +107,14 @@ def test_candidate_subset_and_validation():
 @pytest.mark.parametrize("plan", ["device_sharded", "device_sharded_pool",
                                   "greedi"])
 def test_mesh_plans_are_refused_by_name(plan):
+    """A mesh plan with no process group raises, naming the call that
+    initialises one (the plans themselves: tests/test_torch_distributed.py)."""
     f, _ = _pair("torch")
-    with pytest.raises(NotImplementedError, match="A.7"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         greedy(f, 2, mode=plan)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        run_selection(f, kind="lazy", k=2, plan=plan)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        run_selection(f, kind="dense", k=2, plan=plan,
+                      cand_rounds=np.arange(f.n)[None, :])
 
 
 def test_fit_exemplar_clustering_assign_matches_reference():
