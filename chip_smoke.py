@@ -60,6 +60,19 @@ Phases (any failure exits non-zero before the result lines):
    the first element whose accept decision that order flips, with the two
    orders' gains (``previous_order_gains`` replays the old order in plain
    PyTorch).
+   Then the contracts on the card (phase 3e): ``repro_torch.analysis.audit``
+   in-process, ``--device cuda --quick`` (one case per contract and kind
+   on the ``cuda`` backend, so the gain and sieve kernels launch; the
+   runtime checks; the lint), then the census at the paper's size of
+   ``engine.select_scan`` (dense, stochastic, lazy; fp32 and bf16),
+   ``select_scan_batched`` on the four-tenant bucket of phase 3b and the
+   device sieve's ``offer_scan`` on the stream's first 2 048 elements, each
+   at k, k + 1 and k + 2 rounds (elements): host syncs, launches and
+   collectives per round, new cache buffers per round, the peak device
+   memory of the call against its tile bound, every sync-free case under
+   ``torch.cuda.set_sync_debug_mode("error")``. Every kernel call of the
+   phase is a launch and no plain version runs. Launches are counted over
+   this phase only (``audit_launches``).
    Then the mesh plans (phase 3d) at the same size: ``MESH_P`` = 4 gloo
    ranks on ``cuda:0`` (``spawn_local``: a ``FileStore`` under ``build/``,
    a timeout, every rank killed on a failure), each running greedy,
@@ -81,7 +94,9 @@ Phases (any failure exits non-zero before the result lines):
    band of their plain versions (each comparison catching a planted 1 %
    error); on every rank, each kernel of the mesh path launched and no
    plain version run. Launches are counted per rank over the mesh path
-   only. Then one NCCL rank runs greedy under ``device_sharded`` (= the
+   only. Rank 0 also reports the census of one ``device_sharded`` greedy
+   run at k, k + 1, k + 2 (every rank runs it): collectives per round and
+   their largest operand. Then one NCCL rank runs greedy under ``device_sharded`` (= the
    device plan). Each rank's wall per plan and launches per kernel are
    printed beside the card's line; four ranks share one card, so the walls
    are not a scaling figure.
@@ -1129,6 +1144,98 @@ def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
     return walls, f, full
 
 
+#: Kernels of the contract phase (3e): the audit's grid and paper-size
+#: cases launch the gain and sieve kernels (the multiset kernels have no
+#: contract).
+AUDIT_KERNELS = ("gain_eval", "gain_update_eval", "gain_eval_batched",
+                 "gain_update_eval_batched", "sieve_gain_eval",
+                 "sieve_gain_eval_batched")
+
+
+def _contract_line(r) -> str:
+    m = r.metrics
+    mem = "" if m["peak_bytes"] is None else (
+        f"; peak {m['peak_bytes']} B <= bound {m['memory_bound']} B")
+    return (f"syncs/round {m['syncs_per_round']} (CELF iterations "
+            f"{m['celf_iterations']}), launches/round "
+            f"{json.dumps(m['launches_per_round'])}, collectives/round "
+            f"{json.dumps(m['collectives_per_round'])} (largest "
+            f"{m['max_collective_bytes']} B), new cache buffers/round "
+            f"{m['cache_allocs_per_round']}{mem}; {m['seconds']:.2f} s")
+
+
+def phase_contracts(N=50_000, DIM=100, K=10, PREFIX=2048) -> dict:
+    """The contract audit on the card (phase 3e). Raises on any violation;
+    returns the launches per kernel over the phase."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import audit, registry, report
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    plain = collections.Counter()
+    real = {name: getattr(mg, name) for name in PLAIN_VERSIONS}
+    for name in PLAIN_VERSIONS:
+        setattr(mg, name, _counting(plain, name, real[name]))
+    calls0 = collections.Counter(ops.CALLS)
+    launches0 = collections.Counter(ops.LAUNCHES)
+    teardown = audit._ensure_group()
+    try:
+        t0 = time.perf_counter()
+        results, rt, uncovered, _ = audit.run_audit("cuda", quick=True,
+                                                    log=log)
+        findings = audit.run_lint(log=log)
+        bad = [r.label for r in results if not r.ok] + \
+            [r["name"] for r in rt if not r["ok"]]
+        if bad or uncovered or findings:
+            raise AssertionError(f"contract audit on the card: failed "
+                                 f"{bad}, uncovered {uncovered}, lint "
+                                 f"{[str(f) for f in findings]}")
+        log(f"  grid (--device cuda --quick): {len(results)} cases and "
+            f"{len(rt)} runtime checks pass, lint clean, every contract "
+            f"covered; {time.perf_counter() - t0:.1f} s")
+        for name, m in sorted(report.contract_metrics(results).items()):
+            log(f"    {name}: {json.dumps(m)}")
+        X = blobs(N, DIM, centers=16, seed=0)[0]
+        Xp = [X] + [blobs(N, DIM, centers=16, seed=t)[0] for t in (1, 2, 3)]
+        order = np.random.default_rng(0).permutation(N)
+        cases = [registry.paper_selection_case(kind, pol, X, dev, k=K)
+                 for kind in ("dense", "stochastic", "lazy")
+                 for pol in ("fp32", "bf16")]
+        cases.append(registry.paper_selection_case("dense", "fp32", Xp, dev,
+                                                   k=K, batch=4))
+        cases.append(registry.paper_sieve_case(X, X[order[:PREFIX]], dev,
+                                               k=K))
+        for case in cases:
+            torch.cuda.empty_cache()
+            r = report.evaluate_case(case, card=True)
+            if not r.ok:
+                raise AssertionError(f"{r.label}: "
+                                     + "; ".join(map(str, r.violations)))
+            log(f"  {r.label} ({r.contract}, n={N} d={DIM} k={K}, sync "
+                f"debug mode {'on' if case.expect.syncs_total == 0 else 'off: CELF'}"
+                f"): {_contract_line(r)}")
+    finally:
+        teardown()
+        for name in PLAIN_VERSIONS:
+            setattr(mg, name, real[name])
+    calls = collections.Counter(ops.CALLS) - calls0
+    launches = collections.Counter(ops.LAUNCHES) - launches0
+    missing = [k for k in AUDIT_KERNELS if not launches.get(k)]
+    if calls != launches or plain or missing:
+        raise AssertionError(f"contract phase: calls {dict(calls)} != "
+                             f"launches {dict(launches)}, plain versions "
+                             f"{dict(plain)}, or no launch of {missing}")
+    log(f"  every kernel call a launch ({json.dumps(dict(launches))}), no "
+        f"plain version run; card: {card_line()}")
+    return dict(launches)
+
+
 #: The mesh phase's (3d) references, from the single-device device plan on
 #: the same card: greedy / stochastic_greedy / lazy_greedy at the paper's
 #: size (phase 3) and the sieve family on the stream prefix (phase 3c).
@@ -1339,9 +1446,17 @@ def mesh_rank(rank, world, prefix, N):
     launches, plain_calls = dict(ops.LAUNCHES), dict(plain)
     sh = distributed.resolve_mesh(None, ("data",))
     kernels = mesh_kernel_checks(f, fp, sh, N)
+    # the census of one device_sharded greedy at k, k + 1, k + 2 (every
+    # rank runs it: its collectives pair up across the ranks)
+    from repro_torch.analysis import registry, report
+
+    census = report.evaluate_case(registry.paper_sharded_case(
+        f.V, f.device, k=K), card=True)
     return {"results": results, "walls": walls, "launches": launches,
             "plain": plain_calls, "kernels": kernels, "shard": sh.index,
-            "tiles_per_memory": sh.tiles_per_memory(f.device)}
+            "tiles_per_memory": sh.tiles_per_memory(f.device),
+            "census": {"violations": [str(v) for v in census.violations],
+                       "metrics": census.metrics}}
 
 
 def nccl_rank(rank, world, N):
@@ -1436,6 +1551,19 @@ def phase_mesh(refs: dict, K=10, N=50_000):
             f"{len(refs['prefix'])} elements = device plan (members "
             f"{r0[name].indices}, evaluations {r0[name].evaluations}, value "
             f"diff {abs(r0[name].value - refs[name].value):.3e})")
+    for q, r in enumerate(ranks):
+        if r["census"]["violations"]:
+            raise AssertionError(f"rank {q}: device_sharded greedy census: "
+                                 f"{r['census']['violations']}")
+    m = ranks[0]["census"]["metrics"]
+    log(f"  census of device_sharded greedy on rank 0 (every rank runs it, "
+        f"p={MESH_P}, n={N} k={K}): syncs/round {m['syncs_per_round']}, "
+        f"launches/round {json.dumps(m['launches_per_round'])}, "
+        f"collectives/round {json.dumps(m['collectives_per_round'])}, "
+        f"largest operand {m['max_collective_bytes']} B (bound "
+        f"{(N + 1) * 4} B: the (n + 1) gains and stat sum), new cache "
+        f"buffers/round {m['cache_allocs_per_round']}; "
+        f"{m['seconds']:.2f} s")
     kern = ranks[0]["kernels"]
     log(f"  kernels on shard 0 (against their plain versions on the slice "
         f"with the global n; bit for bit their launch alone on the slice; "
@@ -2062,6 +2190,12 @@ def main() -> int:
             f"{first_flip(fstream, 10, 0.1, _stream(fstream, None, 0))} "
             f"({time.perf_counter() - t1:.1f} s)")
     del fstream
+    log("[3e] contracts on the card (repro_torch.analysis.audit --device "
+        "cuda --quick, then the paper's size)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    audit_launches = phase_contracts()
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
     log(f"[3d] mesh plans: {MESH_P} gloo ranks on cuda:0, then one NCCL rank "
         f"(n = 50 000, d = 100, k = 10)")
     torch.cuda.empty_cache()
@@ -2104,6 +2238,8 @@ def main() -> int:
             "main_rel_err": r["main_rel_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"],
+            # launches in the contract phase (3e)
+            "audit_launches": audit_launches.get(name, 0),
             # per rank of the mesh phase (3d), for the kernels it runs
             **({"mesh_launches": [mesh_launches[q].get(name, 0)
                                   for q in sorted(mesh_launches)]}

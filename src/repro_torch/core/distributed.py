@@ -63,9 +63,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core import distances as dist_mod
 from repro_torch.core import functions as fx
-from repro_torch.core.engine import (_at, _device_block_m, _score_blocked,
+from repro_torch.core.engine import (_at, _device_block_m, _freeze_where,
+                                     _score_blocked,
                                      drive_selection_scan,
                                      drive_selection_scan_batched,
                                      mesh_tiles_per_memory)
@@ -472,6 +474,27 @@ def _kernel_ops(backend: str, fn: FnSpec):
     return tmpl, kops
 
 
+@contract(
+    "distributed.selection_scan[sharded]",
+    factory=True,
+    host_syncs_per_round="celf",
+    launches_per_round={"gain_eval": 1},
+    collective_kinds=("allgather_", "allreduce_"),
+    claim="a round makes no host sync (CELF: one allowed read per "
+          "re-score); each scored batch is ONE all-gather of O(m) gain "
+          "partials, each candidate block and the winner one owner gather "
+          "of O(block·d) rows; nothing O(n·d) crosses the mesh")
+@contract(
+    "distributed.selection_scan[replicated]",
+    factory=True,
+    host_syncs_per_round="celf",
+    launches_per_round={"gain_update_eval": 1, "gain_eval": 1},
+    collective_kinds=("allgather_", "allreduce_"),
+    reuse=("cache",),
+    claim="a round makes no host sync (CELF: one allowed read per "
+          "re-score) and ONE all-gather of the (m + 1) gain partials and "
+          "stat sum per scored batch (graph cut: one more owner gather); "
+          "the fused kernel ping-pongs two cache shards")
 def make_selection_scan(
     mesh,
     data_axes: Sequence[str],
@@ -573,7 +596,7 @@ def make_selection_scan(
             return g if extra is None else g + extra
 
         cache0 = (seedf, torch.zeros((), dtype=torch.float32, device=dev))
-        w0c = (w0.to(V_loc.dtype), torch.tensor(-1, device=dev))
+        w0c = (w0.to(V_loc.dtype), torch.full((), -1, device=dev))
 
         if pool_plan == "sharded":
             n_loc_pool = pool.shape[0]
@@ -731,6 +754,28 @@ def run_sharded_selection(
 # ---------------------------------------------------------------------------
 
 
+@contract(
+    "distributed.selection_scan_batched[sharded]",
+    factory=True,
+    host_syncs_per_round="celf",
+    launches_per_round={"gain_eval_batched": 1},
+    collective_kinds=("allgather_", "allreduce_"),
+    claim="B tenants' rounds make no host sync (CELF: one allowed read "
+          "per re-score); each scored batch is ONE all-gather of O(B·m) "
+          "and each candidate block ONE owner gather of O(B·block·d) — "
+          "never one collective per tenant")
+@contract(
+    "distributed.selection_scan_batched[replicated]",
+    factory=True,
+    host_syncs_per_round="celf",
+    launches_per_round={"gain_update_eval_batched": 1,
+                        "gain_eval_batched": 1},
+    collective_kinds=("allgather_", "allreduce_"),
+    reuse=("cache",),
+    claim="B tenants' rounds make no host sync (CELF: one allowed read "
+          "per re-score) and ONE all-gather of (B, m + 1) per scored batch "
+          "(graph cut: ONE owner gather of (B,)); the batched fused kernel "
+          "ping-pongs two (B, n/p) cache shards")
 def make_selection_scan_batched(
     mesh,
     data_axes: Sequence[str],
@@ -805,9 +850,13 @@ def make_selection_scan_batched(
             dw = torch.stack([pair(V_loc[b], row[b][None, :], policy)[:, 0]
                               for b in range(B)])
             folded = fx.fold_vec_rows(fn, vec, dw.to(torch.float32))
-            new_aux = aux if fn.name != "graph_cut" else torch.stack([
-                fx.fold_aux(fn, vec[b], aux[b], gidx[b], off, n_loc,
-                            psum=gather) for b in range(B)])
+            new_aux = aux
+            if fn.name == "graph_cut":
+                # every tenant's owner entry in ONE gather of (B,)
+                vw = gather(torch.stack([
+                    fx.owner_entry(vec[b], gidx[b], off, n_loc)
+                    for b in range(B)]))
+                new_aux = fx.aux_from_entry(aux, vw)
             ok = gidx >= 0
             return (torch.where(ok[:, None], folded, vec),
                     torch.where(ok, new_aux, aux))
@@ -868,10 +917,10 @@ def make_selection_scan_batched(
                                for s in range(0, idx.shape[1], bm)], dim=1)
                 return psum_gains_val(with_extra(g, vec, idx), cache)
 
-            def fold_score_val(cache, w_prev, cand_t):
+            def fold_score_val(cache, w_prev, cand_t, act):
                 cache2 = fold(cache, w_prev)
                 gains, val = score_idx_val(cache2, cand_t)
-                return gains, cache2, val
+                return gains, _freeze_where(act, cache2, cache), val
 
             return drive_selection_scan_batched(
                 kind=kind, k=k, top_b=top_b, k_eff=k_eff, take=take,
@@ -892,25 +941,30 @@ def make_selection_scan_batched(
             return psum_gains_val(with_extra(g, vec, idx), cache)
 
         if kops is not None and fx.kernel_fused_ok(fn):
+            # the fused kernel reads one cache buffer and writes the other
+            # (the staged seed, single use, is the first); a frozen
+            # request's fold gate is 0, so its cache is copied
+            bufs = (seedf, torch.empty_like(seedf))
 
-            def fold_score_val(cache, w_prev, cand_t):
-                # a fresh new-cache buffer every round: never the one the
-                # launch reads, also after a frozen request's carry
+            def fold_score_val(cache, w_prev, cand_t, act):
                 vec, aux = cache
                 row, gidx = w_prev
+                out = bufs[1] if vec is bufs[0] else bufs[0]
                 g_part, vec2 = kops.fused_gain_update(
                     V_loc, candidates(cand_t), vec, row, policy=policy,
                     rbf_gamma=rbf_gamma, fold=tmpl[0], score_affine=tmpl[1],
-                    n_total=n_total, w_valid=(gidx >= 0).to(torch.float32))
+                    n_total=n_total,
+                    w_valid=((gidx >= 0) & act).to(torch.float32),
+                    cache_out=out)
                 cache2 = (vec2, aux)
                 gains, val = psum_gains_val(g_part, cache2)
                 return gains, cache2, val
         else:
 
-            def fold_score_val(cache, w_prev, cand_t):
+            def fold_score_val(cache, w_prev, cand_t, act):
                 cache2 = fold(cache, w_prev)
                 gains, val = score_idx_val(cache2, cand_t)
-                return gains, cache2, val
+                return gains, _freeze_where(act, cache2, cache), val
 
         return drive_selection_scan_batched(
             kind=kind, k=k, top_b=top_b, k_eff=k_eff, pool=pool,
@@ -1006,6 +1060,16 @@ def run_sharded_selection_batch(
 # ---------------------------------------------------------------------------
 
 
+@contract(
+    "distributed.greedi_scan",
+    factory=True,
+    launches_per_round={"gain_update_eval": 2, "gain_eval": 2},
+    collective_kinds=("allgather_", "allreduce_"),
+    reuse=("cache",),
+    claim="no host sync; phase 1 is collective-free; a round adds p + 1 "
+          "all-gathers of O(1) and O(p·k) (the p solutions' global values "
+          "and the merge round's gains); the gathered solution rows are "
+          "the largest operand, O(k·d) per rank, never O(n)")
 def make_greedi_scan(
     mesh,
     data_axes: Sequence[str],
@@ -1052,7 +1116,7 @@ def make_greedi_scan(
         off = sh.index * n_loc
         seedf = seed_loc.to(torch.float32)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        w0c = (w0.to(V_loc.dtype), torch.tensor(-1, device=dev))
+        w0c = (w0.to(V_loc.dtype), torch.full((), -1, device=dev))
 
         def score_local(vec, C, n_norm):
             sc = fx.score_cache_rows(fn, vec, aux_loc)
@@ -1169,7 +1233,8 @@ def make_greedi_scan(
             local_trajs.append(torch.stack(vals))
         local_trajs = torch.stack(local_trajs)           # (p, k)
         best_q = torch.argmax(local_trajs[:, -1])
-        best_local_val = local_trajs[best_q, -1]
+        # _at, not [best_q]: indexing with a 0-d tensor reads it on the host
+        best_local_val = _at(local_trajs[:, -1], best_q)
 
         # ---- merge greedy over the gathered pool, cache sharded
         if fused:
@@ -1204,8 +1269,9 @@ def make_greedi_scan(
         # ---- best-of-both: the better of the merged greedy and the best
         # single-partition solution; ties keep the merged answer
         use_local = best_local_val > traj2[-1]
-        sel_out = torch.where(use_local, idx_pk[best_q], merged_idx[sel2])
-        traj_out = torch.where(use_local, local_trajs[best_q], traj2)
+        sel_out = torch.where(use_local, _at(idx_pk, best_q),
+                              merged_idx[sel2])
+        traj_out = torch.where(use_local, _at(local_trajs, best_q), traj2)
         n_scored = nsc1_total + nsc2 + p_total * k
         return sel_out, traj_out, n_scored
 

@@ -43,6 +43,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core import distances as dist_mod
 from repro_torch.core import functions as fx
 from repro_torch.core.evaluator import free_memory_bytes
@@ -274,7 +275,7 @@ def make_lazy_step(take, n_pool, fold, score_idx_val, top_b: int,
         while it < max_iters:
             stale = torch.where(fresh | taken, -torch.inf, ub)
             fresh_best = torch.max(torch.where(fresh & ~taken, ub, -torch.inf))
-            if not bool(fresh_best < torch.max(stale)):  # one sync
+            if not bool(fresh_best < torch.max(stale)):  # lint: allow(host-sync)
                 break
             top_ub, top_idx = torch.sort(stale, descending=True, stable=True)
             top_ub, top_idx = top_ub[:top_b], top_idx[:top_b]
@@ -359,6 +360,16 @@ def drive_selection_scan(*, kind, k, top_b, cand_rounds, cache0, w0, fold,
     return torch.stack(sel), traj, n_scored
 
 
+@contract(
+    "engine.select_scan",
+    host_syncs_per_round="celf",
+    launches_per_round={"gain_update_eval": 1, "gain_eval": 1},
+    reuse=("cache",),
+    memory=True,
+    claim="the k rounds enqueue with no host sync (CELF: one allowed "
+          "scalar read per re-score); a dense or stochastic round is ONE "
+          "launch of the fused gain kernel, which ping-pongs two cache "
+          "buffers; collective-free; half payloads stay half")
 def _select_scan(V, seed, row_aux, cand_rounds, w0, *, fn: FnSpec, kind: str,
                  k: int, top_b: int, distance: str, policy: PrecisionPolicy,
                  block_m: int, backend: str, rbf_gamma: Optional[float]):
@@ -436,7 +447,8 @@ def _select_scan(V, seed, row_aux, cand_rounds, w0, *, fn: FnSpec, kind: str,
                 cache2 = fold(cache, w_prev)
                 return score_idx(cache2, cand_t), cache2, value_of(cache2)
 
-    w0c = (w0.to(V.dtype), torch.tensor(-1, device=V.device))
+    # torch.full, not torch.tensor: no host value is copied to the card
+    w0c = (w0.to(V.dtype), torch.full((), -1, device=V.device))
     cache0 = (seedf, torch.zeros((), dtype=torch.float32, device=V.device))
     return drive_selection_scan(
         kind=kind, k=k, top_b=top_b, pool=V, cand_rounds=cand_rounds,
@@ -481,26 +493,31 @@ def make_batched_rounds_step(take, fold_score_val, k_eff):
     """Batched :func:`make_rounds_step` — dense/stochastic rounds over a
     leading request axis.
 
-    ``fold_score_val(cache, w_prev, cand_t) -> (gains (B, m), cache,
+    ``fold_score_val(cache, w_prev, cand_t, act) -> (gains (B, m), cache,
     value (B,))`` folds each request's previous winner and scores its own
-    candidate row; ``take(idx (B,)) -> ((B, d) rows, idx)`` resolves the
-    per-request winners. ``k_eff`` (B,) is the ragged-k mask: requests with
-    t ≥ k_eff freeze. Nothing here reads a device value on the host.
+    candidate row; the cache it returns keeps the held cache of every
+    request with ``act`` False (the fused kernel by its fold gate, so the
+    carry can ping-pong two buffers; the others by ``torch.where``), while
+    the gains and values of those requests are never read. ``take(idx
+    (B,)) -> ((B, d) rows, idx)`` resolves the per-request winners.
+    ``k_eff`` (B,) is the ragged-k mask: requests with t ≥ k_eff freeze.
+    Nothing here reads a device value on the host.
     """
 
     def step(carry, cand_t, t: int):
         cache, taken, w_prev = carry
-        gains, cache2, val = fold_score_val(cache, w_prev, cand_t)
+        act = k_eff > t
+        gains, cache2, val = fold_score_val(cache, w_prev, cand_t, act)
         live = ~torch.gather(taken, 1, cand_t)
         gains = torch.where(live, gains, -torch.inf)
         p = torch.argmax(gains, dim=1)  # first maximum per request
         j = torch.gather(cand_t, 1, p[:, None])[:, 0]
         best = torch.gather(gains, 1, p[:, None])[:, 0]
-        act = k_eff > t
         # exhausted sample row → −1 sentinel, as the unbatched step; frozen
         # rounds also emit −1 (the demux truncates them away)
         j_out = torch.where(act & (best > -torch.inf), j, -1)
-        carry = _freeze_where(act, (cache2, _mark(taken, j), take(j)), carry)
+        carry = (cache2, *_freeze_where(act, (_mark(taken, j), take(j)),
+                                        (taken, w_prev)))
         scored = torch.where(act, torch.sum(live, dim=1).to(torch.int32), 0)
         return carry, (j_out, val, scored)
 
@@ -546,7 +563,7 @@ def make_batched_lazy_step(take, fold, score_idx_val, top_b: int,
             fresh_best = torch.amax(torch.where(fresh & ~taken, ub_c,
                                                 -torch.inf), dim=1)
             active = (fresh_best < torch.amax(stale, dim=1)) & act
-            if it >= first and not bool(torch.any(active)):  # one sync
+            if it >= first and not bool(torch.any(active)):  # lint: allow(host-sync)
                 break
             top_ub, top_idx = torch.sort(stale, dim=1, descending=True,
                                          stable=True)
@@ -654,6 +671,17 @@ def drive_selection_scan_batched(*, kind, k, top_b, k_eff, cand_rounds,
     return torch.stack(sel), traj, n_scored
 
 
+@contract(
+    "engine.select_scan_batched",
+    host_syncs_per_round="celf",
+    launches_per_round={"gain_update_eval_batched": 1,
+                        "gain_eval_batched": 1},
+    reuse=("cache",),
+    memory=True,
+    claim="k rounds of B requests with no host sync (CELF: one allowed "
+          "read per re-score); a dense or stochastic round is ONE launch of "
+          "the batched fused kernel whatever B is, ping-ponging two (B, n) "
+          "cache buffers; collective-free")
 def _select_scan_batched(V, seed, row_aux, cand_rounds, w0, k_eff, *,
                          fn: FnSpec, kind: str, k: int, top_b: int,
                          distance: str, policy: PrecisionPolicy, block_m: int,
@@ -667,11 +695,12 @@ def _select_scan_batched(V, seed, row_aux, cand_rounds, w0, k_eff, *,
     and the per-request reductions run request by request. On the ``cuda``
     backend scoring goes through the grid-over-B kernels, and a
     fused-eligible function's dense/stochastic round is ONE launch of
-    ``gain_update_eval_batched`` whatever B is; its new caches go to a fresh
-    buffer every round (never the one the launch reads, also after a
-    request's carry was frozen by ``torch.where``). ``seed`` is the freshly
-    stacked payload of :func:`stage_selection_batch`, so nothing here writes
-    a function's own ``cache_seed``.
+    ``gain_update_eval_batched`` whatever B is, which reads one of two
+    (B, n) cache buffers and writes the other; a frozen request's fold gate
+    is 0, so its cache is copied through unchanged. ``seed`` is the freshly
+    stacked payload of :func:`stage_selection_batch` (single use, so it is
+    one of the two buffers), so nothing here writes a function's own
+    ``cache_seed``.
     """
     pair = dist_mod.resolve_pairwise(distance)
     B, n = V.shape[:2]
@@ -741,20 +770,26 @@ def _select_scan_batched(V, seed, row_aux, cand_rounds, w0, k_eff, *,
         if backend == "cuda" and fx.kernel_fused_ok(fn) and tmpl is not None:
             from repro_torch.kernels import ops as kops
 
-            def fold_score_val(cache, w_prev, cand_t):
+            # the fused kernel reads one cache buffer and writes the other
+            bufs = (seedf, torch.empty_like(seedf))
+
+            def fold_score_val(cache, w_prev, cand_t, act):
                 vec, aux = cache
                 row, idx = w_prev
+                out = bufs[1] if vec is bufs[0] else bufs[0]
                 gains, vec2 = kops.fused_gain_update(
                     V, candidates(cand_t), vec, row, policy=policy,
                     rbf_gamma=rbf_gamma, fold=tmpl[0], score_affine=tmpl[1],
-                    w_valid=(idx >= 0).to(torch.float32))
+                    w_valid=((idx >= 0) & act).to(torch.float32),
+                    cache_out=out)
                 cache2 = (vec2, aux)  # fused-eligible functions carry no aux
                 return gains, cache2, value_of(cache2)
         else:
 
-            def fold_score_val(cache, w_prev, cand_t):
+            def fold_score_val(cache, w_prev, cand_t, act):
                 cache2 = fold(cache, w_prev)
-                return score_idx(cache2, cand_t), cache2, value_of(cache2)
+                return (score_idx(cache2, cand_t),
+                        _freeze_where(act, cache2, cache), value_of(cache2))
 
     w0c = (w0.to(V.dtype), torch.full((B,), -1, dtype=torch.long, device=dev))
     cache0 = (seedf, torch.zeros((B,), dtype=torch.float32, device=dev))

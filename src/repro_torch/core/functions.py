@@ -192,11 +192,25 @@ def fold_aux(spec: FnSpec, vec, aux, gidx, off, n_loc, psum=None):
     unchanged and calls no collective."""
     if spec.name != "graph_cut":
         return aux
-    rel = gidx - off
-    own = (rel >= 0) & (rel < n_loc)
-    vw = torch.where(own, vec[torch.clamp(rel, 0, n_loc - 1)], 0.0)
+    vw = owner_entry(vec, gidx, off, n_loc)
     if psum is not None:
         vw = psum(vw)
+    return aux_from_entry(aux, vw)
+
+
+def owner_entry(vec, gidx, off, n_loc):
+    """Graph cut's cache entry of global row ``gidx`` on the shard holding
+    rows [off, off + n_loc), 0 on every other shard."""
+    rel = gidx - off
+    own = (rel >= 0) & (rel < n_loc)
+    # index_select, not vec[rel]: indexing with a 0-d tensor reads it on
+    # the host
+    at = torch.clamp(rel, 0, n_loc - 1).reshape(1)
+    return torch.where(own, torch.index_select(vec, 0, at)[0], 0.0)
+
+
+def aux_from_entry(aux, vw):
+    """Graph cut's penalty advanced by the winner's cache entry ``vw``."""
     return aux + 2.0 * vw + SIM_SELF
 
 

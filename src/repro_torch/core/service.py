@@ -48,6 +48,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.engine import OptResult
 from repro_torch.core.evaluator import EvalConfig
 from repro_torch.core.functions import FUNCTIONS, SubmodularFunction
@@ -732,6 +733,14 @@ run_selection_batch` per bucket, at the bucket's own batch size, in a
             k_scan = _next_pow2(max(ks))       # ragged k, pooled rounds
         return fs, ks, cand, k_scan
 
+    @contract(
+        "service.bucket_dispatch",
+        runtime_only=True,
+        claim="every signature bucket rides ONE run_selection_batch "
+              "dispatch (pow2-padded with inert k_eff = 0 slots); its rounds "
+              "are engine.select_scan_batched's, audited there — this "
+              "contract's own check is the service round trip (6 tenants in "
+              "2 bursts cost 2 dispatches)")
     def _run_bucket(self, reqs: list[_SelectionRequest]):
         """Synchronous batched dispatch for one signature bucket (runs in a
         thread)."""

@@ -67,6 +67,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core import functions as fx
 from repro_torch.core.functions import FnSpec
 
@@ -635,6 +636,14 @@ class DeviceSieveEngine(_SieveEngineBase):
         return acc
 
 
+@contract(
+    "streaming.offer_scan",
+    factory=True,
+    launches_per_round={"sieve_gain_eval": 1},
+    reuse=("caches",),
+    claim="a stream block's elements run back to back with no host sync "
+          "and no collective: one sieve kernel launch per element, the "
+          "(S_max, n) table updated in place")
 def _offer_loop(spec: SieveSpec, device, **hooks):
     """``offer(state, c, idxs, dmat, nb) -> (state, accepted (nb,))``: the
     element step over the ``nb`` live elements of a block, back to back,
@@ -665,6 +674,16 @@ def _sharded_mean_rows(shards, n_total: int, device):
     return mean_rows
 
 
+@contract(
+    "streaming.offer_scan[sharded]",
+    factory=True,
+    launches_per_round={"sieve_gain_eval": 1},
+    collective_kinds=("allgather_",),
+    reuse=("caches",),
+    claim="no host sync inside a block; each element's gains and stat "
+          "sums cross the mesh in ONE all-gather of O(S_max) floats (++: "
+          "one more for its post-fold values) — never O(n); the (S_max, "
+          "n/p) table shard is updated in place")
 def make_sharded_offer_scan(mesh, data_axes: Sequence[str] = ("data",), *,
                             spec: SieveSpec, n_total: int, device):
     """Build the column-sharded engine's block consumer.
@@ -803,12 +822,10 @@ class BatchedSieveEngine(_EngineIO):
         return [np.concatenate(o) if o else np.zeros(0, bool) for o in out]
 
     def _consume(self, idxp, dmatb, valid, n_rows: int) -> torch.Tensor:
-        accepted = []
-        for b in range(n_rows):
-            self.states, acc = _element_step(self.spec, self._c, self.states,
-                                             idxp[b], dmatb[b], valid[b])
-            accepted.append(acc)
-        return torch.stack(accepted)
+        self.states, acc = _offer_block_batched(self.spec, self._c,
+                                                self.states, idxp, dmatb,
+                                                valid, n_rows)
+        return acc
 
     def _fold_evals(self) -> None:
         e = _host(self.states.evals)
@@ -845,6 +862,26 @@ class BatchedSieveEngine(_EngineIO):
             np.arange(self.spec.k)[None, None, :]
             < _host(st.sizes)[:, :, None])
         return sorted({int(i) for i in _host(st.members)[live]})
+
+
+@contract(
+    "streaming.offer_scan_batched",
+    launches_per_round={"sieve_gain_eval_batched": 1},
+    reuse=("caches",),
+    claim="P partitions advance through a block with no host sync: one "
+          "launch of the batched sieve kernel per element row scores all P "
+          "tables, which are updated in place")
+def _offer_block_batched(spec: SieveSpec, c: StepConsts, states: SieveState,
+                         idxp, dmatb, valid, n_rows: int):
+    """The batched engine's block: ``n_rows`` element rows of P partitions
+    (``idxp`` (B, P), ``dmatb`` (B, P, n), ``valid`` (B, P)), back to back
+    with no host read. Returns ``(states, accepted (n_rows, P))``."""
+    accepted = []
+    for b in range(n_rows):
+        states, acc = _element_step(spec, c, states, idxp[b], dmatb[b],
+                                    valid[b])
+        accepted.append(acc)
+    return states, torch.stack(accepted)
 
 
 def _resolve_backend(f, backend: Optional[str]) -> str:

@@ -14,12 +14,17 @@ no CUDA toolkit, where only the kernels' plain versions run.
 
 Every launch goes through :func:`launch`, which raises on a non-zero
 ``cudaError_t`` from the C entry and adds one to ``LAUNCHES[kernel]``
-(``kernels.ops.LAUNCHES`` is the same counter).
+(``kernels.ops.LAUNCHES`` is the same counter). Every kernel wrapper is
+decorated with :func:`kernel_call`, which adds one to ``CALLS[kernel]``
+whatever the route (the kernel on CUDA tensors, its plain version on CPU
+ones), so launch budgets can be checked off the card; on the card the two
+counters agree.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -35,6 +40,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: Kernel launches per kernel name, counted where each wrapper launches.
 LAUNCHES: collections.Counter = collections.Counter()
+#: Kernel wrapper calls per kernel name, counted on either route.
+CALLS: collections.Counter = collections.Counter()
+#: Called as ``hook(kernel, args, kwargs)`` on every wrapper call (the
+#: contract auditor's census reads the kernels' operands through it).
+CALL_HOOKS: list = []
+_DEPTH = threading.local()
+
+
+def in_kernel() -> bool:
+    """Whether a kernel wrapper (its launch or its plain version) is running
+    on this thread: ops issued there belong to the kernel, not its
+    caller."""
+    return getattr(_DEPTH, "n", 0) > 0
+
+
+def kernel_call(kernel: str):
+    """Decorate a kernel wrapper: count ``CALLS[kernel]``, tell the
+    :data:`CALL_HOOKS`, and mark the call as inside a kernel."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            CALLS[kernel] += 1
+            for hook in CALL_HOOKS:
+                hook(kernel, args, kwargs)
+            _DEPTH.n = getattr(_DEPTH, "n", 0) + 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                _DEPTH.n -= 1
+        return call
+
+    return wrap
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

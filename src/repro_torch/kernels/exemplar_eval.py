@@ -200,6 +200,7 @@ def _launch_eval(kernel, fn, out, part, V, S, lengths, d_e0, n_total,
         _build.POLICY_CODES[policy.name], code, _build.stream_ptr(V.device))
 
 
+@_build.kernel_call("fused_eval")
 def fused_eval(
     V: torch.Tensor,          # (n, d) float32 or the policy's compute dtype
     S: torch.Tensor,          # flat: (k, l, d); loop: (l, k, d); V's dtype
@@ -231,6 +232,7 @@ def fused_eval(
     return out
 
 
+@_build.kernel_call("two_pass_eval")
 def two_pass_eval(
     V: torch.Tensor,          # (n, d)
     S: torch.Tensor,          # (l, k, d)

@@ -177,6 +177,7 @@ def _partials(B: int, n: int, m: int, device) -> torch.Tensor:
                        device=device)
 
 
+@_build.kernel_call("gain_eval")
 def gain_eval(
     V: torch.Tensor,          # (n, d) float32 or the policy's compute dtype
     C: torch.Tensor,          # (m, d) V's dtype
@@ -209,6 +210,7 @@ def gain_eval(
     return gains
 
 
+@_build.kernel_call("gain_update_eval")
 def gain_update_eval(
     V: torch.Tensor,          # (n, d)
     C: torch.Tensor,          # (m, d)
@@ -272,6 +274,7 @@ def _check_winner(V, winner, w_valid, cache, cache_out):
     return cache_out
 
 
+@_build.kernel_call("gain_eval_batched")
 def gain_eval_batched(
     V: torch.Tensor,          # (B, n, d) float32 or the policy's compute dtype
     C: torch.Tensor,          # (B, m, d) V's dtype
@@ -305,6 +308,7 @@ def gain_eval_batched(
     return gains
 
 
+@_build.kernel_call("gain_update_eval_batched")
 def gain_update_eval_batched(
     V: torch.Tensor,          # (B, n, d)
     C: torch.Tensor,          # (B, m, d)
@@ -439,6 +443,7 @@ def _check_sieve_operands(T, dvec, fold, affine, batched, seed=None):
     return int(fold == "max"), float(a), float(b)
 
 
+@_build.kernel_call("sieve_gain_eval")
 def sieve_gain_eval(
     T: torch.Tensor,          # (r, n) float32 cache-table rows
     dvec: torch.Tensor,       # (n,) float32 distance row of one element
@@ -475,6 +480,7 @@ def sieve_gain_eval(
     return out
 
 
+@_build.kernel_call("sieve_gain_eval_batched")
 def sieve_gain_eval_batched(
     T: torch.Tensor,          # (P, r, n) float32 per-partition tables
     dvec: torch.Tensor,       # (P, n) float32 per-partition element rows

@@ -13,7 +13,8 @@ Handles what the CUDA host code in the paper handles:
 
 Every wrapper runs its kernel on CUDA tensors (or raises) and its plain
 PyTorch version on CPU tensors. :data:`LAUNCHES` counts kernel launches per
-kernel name.
+kernel name; :data:`CALLS` counts kernel calls per kernel name on either
+route (on the card the two agree).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.core.precision import FP32, PrecisionPolicy
 from repro_torch.kernels import exemplar_eval as _ee
 from repro_torch.kernels import marginal_gain as _mg
 from repro_torch.kernels import _build
-from repro_torch.kernels._build import LAUNCHES  # noqa: F401 — public counter
+from repro_torch.kernels._build import CALLS, LAUNCHES  # noqa: F401 — public counters
 
 #: The tile shape compiled into csrc/tile.cuh: 256 threads as 16 × 16, each
 #: owning 8 rows × RC columns; V streams in double-buffered 128 × 16 chunks.

@@ -551,3 +551,32 @@ def test_standalone_evaluators_launch_kernels_on_two_gloo_ranks(dev,
         _band(gains, ref_g, BANDS["fp32"], scale)
         assert launches.get("fused_eval") == 1
         assert launches.get("gain_eval") == 1
+
+
+@pytest.mark.cuda
+def test_contract_audit_quick_on_the_card(dev):
+    """The audit's quick grid on the card: the cuda backend's cases launch
+    the gain and sieve kernels (every call a launch, no plain version),
+    the sync-free cases run under the sync debug mode, and every contract
+    holds."""
+    import collections
+
+    from repro_torch.analysis import audit
+    from repro_torch.kernels import ops
+
+    calls0 = collections.Counter(ops.CALLS)
+    launches0 = collections.Counter(ops.LAUNCHES)
+    teardown = audit._ensure_group()
+    try:
+        results, rt, uncovered, _ = audit.run_audit("cuda", quick=True)
+    finally:
+        teardown()
+    assert not uncovered
+    assert all(r.ok for r in results), [
+        (r.label, list(map(str, r.violations))) for r in results if not r.ok]
+    assert all(r["ok"] for r in rt), rt
+    calls = collections.Counter(ops.CALLS) - calls0
+    assert calls == collections.Counter(ops.LAUNCHES) - launches0
+    assert {"gain_eval", "gain_update_eval", "gain_eval_batched",
+            "gain_update_eval_batched", "sieve_gain_eval",
+            "sieve_gain_eval_batched"} <= set(calls)
