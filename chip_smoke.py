@@ -69,7 +69,8 @@ Phases (any failure exits non-zero before the result lines):
    device sieve's ``offer_scan`` on the stream's first 2 048 elements, each
    at k, k + 1 and k + 2 rounds (elements): host syncs, launches and
    collectives per round, new cache buffers per round, the peak device
-   memory of the call against its tile bound, every sync-free case under
+   memory of the call against the kernel route's working-set bound
+   (``registry.kernel_bound``), every sync-free case under
    ``torch.cuda.set_sync_debug_mode("error")``. Every kernel call of the
    phase is a launch and no plain version runs. Launches are counted over
    this phase only (``audit_launches``).

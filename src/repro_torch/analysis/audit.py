@@ -61,8 +61,9 @@ def _ensure_group():
 
 
 def run_audit(device="cuda", quick: bool = False, case_filter: str = "",
-              mesh: bool = True, log=print):
-    """Evaluate the grid on ``device``. Returns ``(results, runtime
+              log=print):
+    """Evaluate the grid on ``device`` under the default process group
+    (:func:`_ensure_group` starts one). Returns ``(results, runtime
     results, uncovered contracts, seconds)``."""
     from repro_torch.analysis import report as rep
     from repro_torch.analysis.registry import build_cases, runtime_checks
@@ -70,7 +71,7 @@ def run_audit(device="cuda", quick: bool = False, case_filter: str = "",
     dev = resolve_device(device)
     contracts = _load_contracts()
     card = dev.type == "cuda"
-    cases = build_cases(dev, quick=quick, mesh=mesh)
+    cases = build_cases(dev, quick=quick)
     if case_filter:
         cases = [c for c in cases if case_filter in c.label]
     results = []
@@ -90,7 +91,7 @@ def run_audit(device="cuda", quick: bool = False, case_filter: str = "",
     covered = {c.contract for c in cases}
     rt_results = []
     if not case_filter:
-        for check in runtime_checks(dev, mesh=mesh):
+        for check in runtime_checks(dev):
             try:
                 ok, detail = check.run()
             except Exception as e:

@@ -25,10 +25,12 @@ once, on real (small) inputs, and records per op:
   and the matmuls that consume half operands.
 
 The port's kernels are called through ctypes, which the dispatcher cannot
-see. Every kernel wrapper counts ``kernels._build.CALLS`` and tells the
-census its operands (:data:`repro_torch.kernels._build.CALL_HOOKS`), so the
-census also records calls and launches per kernel and the cache buffers
-the gain and sieve kernels read and write. Ops issued inside a wrapper
+see. Every kernel wrapper counts ``kernels._build.CALLS``, and for the
+length of the run the census wraps each wrapper on its module
+(``kernels.marginal_gain``, ``kernels.exemplar_eval``, where
+``kernels.ops`` looks them up) to read its operands, so the census also
+records calls and launches per kernel and the cache buffers the gain and
+sieve kernels read and write. Ops issued inside a wrapper
 (its plain version on the CPU, its workspace on the card) belong to the
 kernel: like the reference's exemption of converts inside a
 ``pallas_call`` body, they are left out of the syncs, allocations and
@@ -43,6 +45,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import sys
+import threading
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -256,7 +260,7 @@ class _Recorder(TorchDispatchMode):
             return
         if name in _MATMULS and any(t.dtype in _HALF for t in ins):
             c.half_matmuls += 1
-        if _build.in_kernel():
+        if _in_kernel():
             return
         if name == "clone":
             fr = _site_frame()
@@ -326,7 +330,7 @@ def _spy(c: Census):
         orig = getattr(torch.Tensor, meth)
 
         def spy(self, *a, **k):
-            if when(self) and not _build.in_kernel():
+            if when(self) and not _in_kernel():
                 c.syncs.append((meth, sync_site()))
             return orig(self, *a, **k)
 
@@ -344,6 +348,47 @@ def _spy(c: Census):
     return undo
 
 
+_DEPTH = threading.local()
+
+
+def _in_kernel() -> bool:
+    """Whether a watched kernel wrapper (its launch or its plain version)
+    is running on this thread: ops issued there belong to the kernel, not
+    its caller."""
+    return getattr(_DEPTH, "n", 0) > 0
+
+
+def _watch(hook):
+    """Wrap every kernel wrapper (a function with a ``.kernel`` name) on
+    its module: each call tells ``hook(kernel, args, kwargs)`` its operands
+    and marks the ops it issues as the kernel's. Returns an undo
+    callable."""
+    from repro_torch.kernels import exemplar_eval, marginal_gain
+
+    def watched(fn):
+        def call(*a, **kw):
+            if not _in_kernel():
+                hook(fn.kernel, a, kw)
+            _DEPTH.n = getattr(_DEPTH, "n", 0) + 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                _DEPTH.n -= 1
+        return call
+
+    saved = [(mod, name, fn) for mod in (marginal_gain, exemplar_eval)
+             for name, fn in vars(mod).items()
+             if isinstance(fn, types.FunctionType) and hasattr(fn, "kernel")]
+    for mod, name, fn in saved:
+        setattr(mod, name, watched(fn))
+
+    def undo():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return undo
+
+
 def take_census(fn, /, *args, sync_debug: bool = False, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under the census. Returns
     ``(result, Census)``. ``sync_debug`` also runs it under
@@ -355,8 +400,6 @@ def take_census(fn, /, *args, sync_debug: bool = False, **kwargs):
     libs0 = set(_build._LIBS)
 
     def hook(kernel, a, kw):
-        if _build.in_kernel():
-            return
         policy = kw.get("policy")
         if a[0].dtype in _HALF or (
                 policy is not None and policy.compute_dtype in _HALF):
@@ -376,7 +419,7 @@ def take_census(fn, /, *args, sync_debug: bool = False, **kwargs):
         for t in bufs:
             c.cache_buffers.setdefault(_storage(t), t)
 
-    _build.CALL_HOOKS.append(hook)
+    unwatch = _watch(hook)
     undo = _spy(c)
     debug = sync_debug and torch.cuda.is_available()
     prev = torch.cuda.get_sync_debug_mode() if debug else None
@@ -389,7 +432,7 @@ def take_census(fn, /, *args, sync_debug: bool = False, **kwargs):
         if debug:
             torch.cuda.set_sync_debug_mode(prev)
         undo()
-        _build.CALL_HOOKS.remove(hook)
+        unwatch()
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     c.calls = collections.Counter(_build.CALLS) - calls0

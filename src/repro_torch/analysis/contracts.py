@@ -72,8 +72,8 @@ class Contract:
     #: apply the precision-flow rule: no half payload of tile size widens
     #: to fp32 outside a kernel.
     precision: bool = True
-    #: check the peak device memory against the analytic tile bound (on
-    #: the card only).
+    #: check the peak device memory against the analytic working-set bound
+    #: of the case's route (on the card only).
     memory: bool = False
     #: short human description for the README table / report.
     claim: str = ""

@@ -471,10 +471,44 @@ MEM_N, MEM_D, MEM_BM = 1024, 8, 64
 
 
 def tile_bound(n: int, bm: int, batch: int = 1) -> int:
-    """The working-set bound of a selection call: 6 (B·n, bm) float32
-    tiles + 1 MiB (the reference's bound); a full (n, m) matrix of a
-    regression costs B·n·m·4 and trips it."""
+    """The working-set bound of a selection call on the ``torch`` route:
+    6 (B·n, bm) float32 tiles + 1 MiB (the reference's bound); a full
+    (n, m) matrix of a regression costs B·n·m·4 and trips it."""
     return 6 * batch * n * bm * 4 + (1 << 20)
+
+
+#: Slack of :func:`kernel_bound`: the O(B·n) vectors of a round (the taken
+#: mask, CELF's bounds, the fold's distance column) and the caching
+#: allocator's rounding (a large block keeps an unsplit tail under 1 MiB).
+KERNEL_SLACK = 8 << 20
+
+
+def kernel_bound(n: int, m: int, d: int, elem: int, batch: int = 1,
+                 fresh_candidates: bool = False) -> int:
+    """The working-set bound of a selection call on the ``cuda`` route: B
+    requests of (n, d) payloads of ``elem`` bytes an element, m candidates
+    scored per launch. The sum of what the kernel path holds:
+
+    * the gain kernels' partials workspace, B·⌈n/SEG⌉·m·4;
+    * the gathered candidate payload, B·m·d·elem; twice when the
+      candidates change every round (stochastic: the next round's gather
+      is made while this round's is still held);
+    * the two ping-pong caches, 2·B·n·4, and the gains with their masked
+      copy, 2·B·m·4;
+    * the explicit fold's ‖v‖² (the final trajectory point; CELF folds so
+      every round): one payload-sized fp32 temporary, B·n·d·4, and one
+      widened row block of a half payload, WIDEN_BLOCK_ROWS·d·4;
+    * :data:`KERNEL_SLACK`.
+
+    A full (n, m) fp32 matrix, B·n·m·4 (10 GB at n = m = 50 000), is over
+    it by two orders of magnitude."""
+    from repro_torch.core.distances import WIDEN_BLOCK_ROWS
+    from repro_torch.kernels._build import n_segments
+
+    gathered = batch * m * d * elem * (2 if fresh_candidates else 1)
+    return (batch * n_segments(n) * m * 4 + gathered + 2 * batch * n * 4
+            + 2 * batch * m * 4 + batch * n * d * 4 + WIDEN_BLOCK_ROWS * d * 4
+            + KERNEL_SLACK)
 
 
 def _memory_case(device, batch=None):
@@ -523,8 +557,8 @@ def paper_selection_case(kind: str, policy: str, X, device, *, k: int = 10,
     ``batch`` payloads of a list ``X``, at k rounds on the
     ``cuda`` backend, the candidates the optimizers would pass (dense: all
     n; stochastic: the ⌈n/k·ln(1/ε)⌉ sample of ``stochastic_greedy``;
-    lazy: the default top_b of 256). Its memory bound is the analytic tile
-    bound of ``engine._device_block_m``."""
+    lazy: the default top_b of 256, seeded by one launch over all n). Its
+    memory bound is :func:`kernel_bound`."""
     from repro_torch.core import engine as eng
     from repro_torch.core.evaluator import EvalConfig
 
@@ -567,8 +601,8 @@ def paper_selection_case(kind: str, policy: str, X, device, *, k: int = 10,
     exp.rounds = k
     if exp.widen_elems is not None:
         exp.widen_elems = 2 * batch * n + 16
-    exp.memory_bound = tile_bound(
-        n, eng._device_block_m(n, m, n_batch=batch), batch)
+    exp.memory_bound = kernel_bound(n, m, d, Vs[0].element_size(), batch,
+                                    fresh_candidates=kind == "stochastic")
     name = "engine.select_scan" if batch == 1 \
         else "engine.select_scan_batched"
     where = "device" if batch == 1 else f"batched[B={batch}]"
@@ -891,9 +925,8 @@ def _rt_service_bucket(device) -> tuple[bool, str]:
                   f"{stats['dispatches']} dispatches")
 
 
-def runtime_checks(device="cpu", mesh: bool = True) -> list[RuntimeCheck]:
-    """The runtime checks; ``mesh`` includes the one that needs a process
-    group (``retrace.sharded``)."""
+def runtime_checks(device="cpu") -> list[RuntimeCheck]:
+    """The runtime checks. ``retrace.sharded`` needs a process group."""
     device = torch.device(device)
     checks = (
         ("retrace.device", _rt_retrace_device),
@@ -908,4 +941,4 @@ def runtime_checks(device="cpu", mesh: bool = True) -> list[RuntimeCheck]:
     return [RuntimeCheck(name, lambda fn=fn: fn(device),
                          "service.bucket_dispatch"
                          if name == "service.bucket" else "")
-            for name, fn in checks if mesh or name != "retrace.sharded"]
+            for name, fn in checks]

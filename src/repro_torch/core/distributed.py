@@ -830,7 +830,7 @@ def make_selection_scan_batched(
         dev = V_loc.device
         off = sh.index * n_loc
         rows_b = torch.arange(B, device=dev)
-        seedf = seed_loc.to(torch.float32)
+        seedf = seed_loc.to(torch.float32).clone()
 
         def local_stats(vec):
             # each request's sum over its own row, as its unbatched run
@@ -942,8 +942,8 @@ def make_selection_scan_batched(
 
         if kops is not None and fx.kernel_fused_ok(fn):
             # the fused kernel reads one cache buffer and writes the other
-            # (the staged seed, single use, is the first); a frozen
-            # request's fold gate is 0, so its cache is copied
+            # (the seed's copy is the first); a frozen request's fold gate
+            # is 0, so its cache is copied
             bufs = (seedf, torch.empty_like(seedf))
 
             def fold_score_val(cache, w_prev, cand_t, act):

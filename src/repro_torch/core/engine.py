@@ -600,8 +600,9 @@ def drive_selection_scan_batched(*, kind, k, top_b, k_eff, cand_rounds,
     per-request effective k (bucket-padding slots pass 0). The callbacks
     are the batched analogues of :func:`drive_selection_scan`'s:
     ``fold(cache, (rows, idx)) -> cache``, ``score_idx(cache, idx (B, m))
-    -> (B, m)``, ``fold_score_val(cache, w_prev, cand_t) -> (gains, cache,
-    (B,) value)``, ``value_of(cache) -> (B,)``.
+    -> (B, m)``, ``fold_score_val(cache, w_prev, cand_t, act) -> (gains,
+    cache, (B,) value)`` (``act`` (B,): the requests still selecting),
+    ``value_of(cache) -> (B,)``.
 
     As in the unbatched driver, plans with no resident per-request payload
     pass ``take(idx (B,)) -> ((B, d) rows, idx)`` and ``n_pool`` instead
@@ -697,16 +698,15 @@ def _select_scan_batched(V, seed, row_aux, cand_rounds, w0, k_eff, *,
     fused-eligible function's dense/stochastic round is ONE launch of
     ``gain_update_eval_batched`` whatever B is, which reads one of two
     (B, n) cache buffers and writes the other; a frozen request's fold gate
-    is 0, so its cache is copied through unchanged. ``seed`` is the freshly
-    stacked payload of :func:`stage_selection_batch` (single use, so it is
-    one of the two buffers), so nothing here writes a function's own
-    ``cache_seed``.
+    is 0, so its cache is copied through unchanged. ``seed`` is copied
+    here, so neither the staged payload nor a function's own
+    ``cache_seed`` is ever written.
     """
     pair = dist_mod.resolve_pairwise(distance)
     B, n = V.shape[:2]
     dev = V.device
     rows = torch.arange(B, device=dev)
-    seedf = seed.to(torch.float32)
+    seedf = seed.to(torch.float32).clone()
 
     def means(stat):
         # each request's mean over its own row, as its unbatched run takes it

@@ -42,37 +42,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: collections.Counter = collections.Counter()
 #: Kernel wrapper calls per kernel name, counted on either route.
 CALLS: collections.Counter = collections.Counter()
-#: Called as ``hook(kernel, args, kwargs)`` on every wrapper call (the
-#: contract auditor's census reads the kernels' operands through it).
-CALL_HOOKS: list = []
-_DEPTH = threading.local()
-
-
-def in_kernel() -> bool:
-    """Whether a kernel wrapper (its launch or its plain version) is running
-    on this thread: ops issued there belong to the kernel, not its
-    caller."""
-    return getattr(_DEPTH, "n", 0) > 0
 
 
 def kernel_call(kernel: str):
-    """Decorate a kernel wrapper: count ``CALLS[kernel]``, tell the
-    :data:`CALL_HOOKS`, and mark the call as inside a kernel."""
+    """Decorate a kernel wrapper: count ``CALLS[kernel]`` on every call.
+    The wrapper carries its kernel's name as ``.kernel``."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def call(*args, **kwargs):
             CALLS[kernel] += 1
-            for hook in CALL_HOOKS:
-                hook(kernel, args, kwargs)
-            _DEPTH.n = getattr(_DEPTH, "n", 0) + 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                _DEPTH.n -= 1
+            return fn(*args, **kwargs)
+        call.kernel = kernel
         return call
 
     return wrap
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -192,3 +192,24 @@ def test_every_reason_is_used(ref):
     used = {key for c in GRID.values() if c.mesh
             for key, _, _ in _differences(c, ref["cases"][c.ref_label])}
     assert used == set(REASONS)
+
+
+@pytest.mark.parametrize("kind,batch", [("dense", 1), ("stochastic", 1),
+                                        ("lazy", 1), ("dense", 4)])
+def test_kernel_route_memory_bound_at_paper_size(kind, batch):
+    """The card's paper-size cases hold their peak to ``kernel_bound``: it
+    covers the kernel path's own partials workspace, gathered candidates
+    and ping-pong caches, and a full (n, m) fp32 matrix breaks it."""
+    import math
+
+    from repro_torch.kernels._build import n_segments
+
+    n, d = 50_000, 100
+    m = math.ceil(n / 10 * math.log(10)) if kind == "stochastic" else n
+    case = rg.paper_selection_case(
+        kind, "fp32", torch.zeros((n, d)).numpy(), CPU, batch=batch)
+    bound = case.expect.memory_bound
+    held = batch * (n_segments(n) * m * 4 + m * d * 4 + 2 * n * 4)
+    assert held < bound < batch * n * m * 4
+    assert bound == rg.kernel_bound(n, m, d, 4, batch,
+                                    fresh_candidates=kind == "stochastic")

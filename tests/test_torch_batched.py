@@ -362,6 +362,18 @@ def test_batched_run_leaves_function_state_alone():
     assert r1 == r2
 
 
+def test_batched_staged_payload_survives_a_second_run():
+    """The fused rounds ping-pong copies of the staged seed: the staged
+    payload is read only, so a second run on it starts from the same seed
+    and gives the same result."""
+    fs, _ = _funcs("cuda")
+    staged = eng.stage_selection_batch(fs)
+    seed = staged["seed"].clone()
+    r1 = run_selection_batch(fs, kind="dense", k=K, staged=staged)
+    assert torch.equal(staged["seed"], seed)
+    assert run_selection_batch(fs, kind="dense", k=K, staged=staged) == r1
+
+
 def test_batched_rejects_mixed_signatures():
     fs, _ = _funcs("torch")
     other_shape = FUNCTIONS["exemplar"](blobs(N * 2, D, centers=4, seed=1)[0],

@@ -141,6 +141,19 @@ def _service(plan):
     return served, ref, stats
 
 
+def _staged_reuse(fs, plan):
+    """Two runs on one staged (B, n/p) payload: whether the payload's seed
+    came out unchanged, and whether the runs agree."""
+    from repro_torch.core import engine as eng
+
+    staged = eng.stage_selection_batch(fs, plan=plan)
+    seed = staged["seed"].clone()
+    r1 = run_selection_batch(fs, kind="dense", k=K, plan=plan, staged=staged)
+    same_seed = torch.equal(staged["seed"], seed)
+    r2 = run_selection_batch(fs, kind="dense", k=K, plan=plan, staged=staged)
+    return same_seed, r1 == r2
+
+
 def _evaluators(sh, backend="torch"):
     """The standalone evaluators on this rank's shards, on (n, d) data that
     p does not divide (``cuda``: the kernels' plain versions on the CPU)."""
@@ -239,6 +252,8 @@ def _rank_cases(rank, world):
                                         strategy)
     for plan in PLANS:
         out["service", plan] = _service(plan)
+        out["staged_reuse", plan] = _staged_reuse(
+            tenants["exemplar", "cuda"], plan)
     X, _ = blobs(1024, 24, centers=12, seed=13)
     out["distributed_greedy"] = distributed.distributed_greedy(
         None, X, K, EvalConfig(backend="cuda"), device="cpu")
@@ -366,6 +381,15 @@ def test_batched_sharded_request_is_its_unbatched_call(world, p, case):
     got, ref = _same_on_every_rank(world(p), ("batched", case))
     assert len(got) == B
     assert got == ref
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("p", WORLDS)
+def test_batched_sharded_staged_payload_is_read_only(world, p, plan):
+    """The batched mesh plans' fused rounds write copies of the staged
+    seed: a second run on the same staged payload gives the same result."""
+    assert _same_on_every_rank(world(p), ("staged_reuse", plan)) == \
+        (True, True)
 
 
 @pytest.mark.parametrize("plan", PLANS)
