@@ -101,6 +101,26 @@ Phases (any failure exits non-zero before the result lines):
    device plan). Each rank's wall per plan and launches per kernel are
    printed beside the card's line; four ranks share one card, so the walls
    are not a scaling figure.
+   Then LM serving (phase 3f): ``qwen3-0.6b``, ``gemma3-1b`` and
+   ``granite-moe-3b-a800m`` through ``init_model``, ``make_prefill_step``
+   and ``make_serve_step``, random weights from a seed. Gate 1: each cut
+   to one period of its layer pattern (2 layers; 6 for gemma3) at full
+   width in fp32, 16 greedy tokens after a 40-token prompt on the card and
+   on the CPU with the same weights: identical tokens, logits within
+   ``LM_CARD_CPU_REL`` of their max (reported beside it: each side's gap
+   to the same steps replayed in float64 on the CPU). Gate 2: the same
+   cut models (MoE at
+   capacity 8.0, which drops nothing), each decoded position's logits
+   against the train-mode forward's within ``LM_DECODE_BOUND`` (gemma3
+   also across its window: decode wrapping the ring, and a prompt that
+   prefill rolls). Gate 3: the full models in bf16 (``LM_SERVE``), the
+   decode loop under ``torch.cuda.set_sync_debug_mode("error")`` with
+   every cache leaf keeping its storage. Each gate also catches a planted
+   fault: logits off by 1 %, a decode one position off, a host read in the
+   loop and a reallocated cache leaf. Reported, not gated: the bf16
+   tokens, prefill and decode times, tokens/s, peak memory, and a profile
+   of four decode steps (device busy time and kernels per step). The LM
+   path launches none of the port's kernels.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -1595,6 +1615,326 @@ def phase_mesh(refs: dict, K=10, N=50_000):
     return {q: r["launches"] for q, r in enumerate(ranks)}
 
 
+#: The LM serving phase (3f): each configuration at its published widths
+#: and depth in bf16, random weights from seed 0: (batch, prompt tokens,
+#: greedy tokens). gemma3's 600-token prompt is past its 512 window and not
+#: a multiple of it, so prefill rolls the ring, and decode wraps it.
+LM_SERVE = {"qwen3-0.6b": (8, 512, 64), "gemma3-1b": (4, 600, 64),
+            "granite-moe-3b-a800m": (8, 512, 64)}
+#: Depth of gates 1–2's models: one period of the layer pattern (gemma3's
+#: five local layers and its global one).
+LM_CUT_LAYERS = {"qwen3-0.6b": 2, "gemma3-1b": 6, "granite-moe-3b-a800m": 2}
+#: Gate 1, card against the CPU port (fp32, the same weights): logits
+#: within 1e-4 of their max |value|. Both add in fp32 in their own orders
+#: (cuBLAS against the CPU's BLAS, TF32 off) over two to six layers of
+#: widths up to 6 912; on the H100 runs the gap was 0.007–0.18 of the band,
+#: each side as far from a float64 replay as from the other.
+LM_CARD_CPU_REL = 1e-4
+#: Gate 2, decode against the train-mode forward on the card (fp32):
+#: the reference's own bound (``tests/test_models.py``: 5e-4 on logits
+#: of at most 3.6), scaled by the logits' max |value| where it passes 1.
+LM_DECODE_BOUND = 5e-4
+
+
+class _LogitsTap:
+    """Keeps the last position's logits of every ``forward`` the port's
+    steps call (they call ``model.forward`` through the module), on the
+    device, for the gates; the steps themselves return tokens only."""
+
+    def __init__(self):
+        from repro_torch.models import model as M
+
+        self.M, self.real, self.rows = M, M.forward, []
+
+    def __enter__(self):
+        def tapped(*a, **kw):
+            logits, caches = self.real(*a, **kw)
+            self.rows.append(logits[:, -1].float().clone())
+            return logits, caches
+
+        self.M.forward = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.M.forward = self.real
+
+
+def lm_greedy(model, prompts, n):
+    """``n`` greedy tokens through the port's steps (prefill, then
+    ``n − 1`` serve steps). Returns (tokens (B, n) on the host, logits
+    (B, n, V) fp32 on the model's device, caches)."""
+    import torch
+
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = model.cfg
+    S = prompts.shape[1]
+    prefill = make_prefill_step(cfg, cache_len=S + n)
+    decode = make_serve_step(cfg)
+    with _LogitsTap() as tap:
+        tok, caches = prefill(model, {"tokens": prompts})
+        out = [tok]
+        for i in range(n - 1):
+            tok, caches = decode(model, {"tokens": tok, "caches": caches,
+                                         "pos": S + i})
+            out.append(tok)
+    return torch.cat(out, 1).cpu(), torch.stack(tap.rows, 1), caches
+
+
+def lm_teacher_forced(model, tokens, pre, pos_shift=0):
+    """Prefill ``tokens[:, :pre]``, then decode the rest of ``tokens`` one
+    at a time through the serve step; each decoded position's logits
+    (B, S − pre, V) fp32."""
+    import torch
+
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = model.cfg
+    S = tokens.shape[1]
+    prefill = make_prefill_step(cfg, cache_len=S + pos_shift)
+    decode = make_serve_step(cfg)
+    _, caches = prefill(model, {"tokens": tokens[:, :pre]})
+    with _LogitsTap() as tap:
+        for pos in range(pre, S):
+            _, caches = decode(model, {"tokens": tokens[:, pos:pos + 1],
+                                       "caches": caches,
+                                       "pos": pos + pos_shift})
+    return torch.stack(tap.rows, 1)
+
+
+def _cache_storages(caches) -> list:
+    return [t.untyped_storage().data_ptr()
+            for g in caches.values() for t in g["attn"].values()]
+
+
+def lm_gate_card_vs_cpu(cut, B=2, S=40, N=16) -> str:
+    """Gate 1: the cut model in fp32 on the card and, with the same
+    weights, on the CPU; identical greedy tokens, logits within
+    ``LM_CARD_CPU_REL`` of their max. Also catches a planted 1 % error."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import replace
+    from repro_torch.models.model import init_model
+
+    model = init_model(cut, 0, device="cuda")
+    cpu = copy.deepcopy(model).to("cpu")
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cut.vocab_size, (B, S), generator=gen,
+                            dtype=torch.int32)
+    t0 = time.perf_counter()
+    tok_c, lg_c, _ = lm_greedy(cpu, prompts, N)
+    t_cpu = time.perf_counter() - t0
+    tok_g, lg_g, _ = lm_greedy(model, prompts.cuda(), N)
+    lg_g = lg_g.cpu()
+    if not torch.equal(tok_g, tok_c):
+        first = int((tok_g != tok_c).any(0).int().argmax())
+        raise AssertionError(f"{cut.name}: card tokens differ from the CPU "
+                             f"port's from step {first}")
+    band = LM_CARD_CPU_REL * float(lg_c.abs().max())
+    err = float((lg_g - lg_c).abs().max())
+    caught = float((lg_g * 0.99 - lg_c).abs().max())
+    if not err <= band:
+        raise AssertionError(f"{cut.name}: card logits {err:.3e} from the "
+                             f"CPU port's > {band:.3e}")
+    if not caught > band:
+        raise AssertionError(f"{cut.name}: the card-vs-CPU band {band:.3e} "
+                             f"misses a planted 1 % error ({caught:.3e})")
+    # which side moved (reported): both against the same steps on the CPU
+    # in float64 (its norms, RoPE angles, scores and router still round to
+    # fp32, so it is a finer reference, not an exact one; a
+    # forward over the whole sequence would not do for MoE, whose
+    # capacity follows each call's token count)
+    cpu.double()
+    cpu.cfg = replace(cut, dtype="float64")
+    tok_d, lg_d, _ = lm_greedy(cpu, prompts, N)
+    if torch.equal(tok_d, tok_c):
+        e_g, e_c = (float((lg.double() - lg_d).abs().max()) / band
+                    for lg in (lg_g, lg_c))
+        finer = f"card {e_g:.3f}, CPU {e_c:.3f} of it"
+    else:
+        finer = "its tokens differ"
+    return (f"{N} tokens x {B} identical, logits err {err:.3e} = "
+            f"{err / band:.3f} of the band (planted 1 %: {caught / band:.1f}x;"
+            f" against float64 on the CPU: {finer}; CPU {t_cpu:.1f} s)")
+
+
+def lm_gate_decode_vs_forward(cut, B=2, S=40, N=16) -> str:
+    """Gate 2: each decoded position's logits on the card against the
+    train-mode forward's, within ``LM_DECODE_BOUND`` (scaled); a decode one
+    position off must fail it. gemma3 also runs across its window: a
+    prompt of window − 7 whose decode wraps the ring, and one of
+    window + 88 that prefill rolls."""
+    import torch
+
+    from repro_torch.models.model import forward, init_model
+
+    model = init_model(cut, 0, device="cuda")
+    runs = [(S, N)]
+    if cut.sliding_window:
+        w = cut.sliding_window
+        runs += [(w - 7, N), (w + 88, N)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    parts = []
+    for pre, n in runs:
+        tokens = torch.randint(0, cut.vocab_size, (B, pre + n), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        with torch.no_grad():
+            full, _ = forward(model, {"tokens": tokens})
+        want = full[:, pre:].float()
+        bound = LM_DECODE_BOUND * max(1.0, float(want.abs().max()))
+        got = lm_teacher_forced(model, tokens, pre)
+        err = float((got - want).abs().max())
+        off = float((lm_teacher_forced(model, tokens, pre, pos_shift=1)
+                     - want).abs().max())
+        if not err <= bound:
+            raise AssertionError(f"{cut.name}: decode at {pre}..{pre + n} "
+                                 f"is {err:.3e} from the forward > {bound:.3e}")
+        if not off > bound:
+            raise AssertionError(f"{cut.name}: the decode bound {bound:.3e} "
+                                 f"misses a decode one position off "
+                                 f"({off:.3e})")
+        parts.append(f"positions {pre}..{pre + n - 1}: err {err:.3e} = "
+                     f"{err / bound:.3f} of {bound:.3e} (one off: "
+                     f"{off / bound:.0f}x)")
+    return "; ".join(parts)
+
+
+def lm_serve_full(cfg, B, S, N) -> dict:
+    """Gate 3 and the report: the full model in bf16, prefill of B × S,
+    then N − 1 greedy steps under ``set_sync_debug_mode("error")``; every
+    cache leaf keeps its storage. A planted host read in the loop must
+    raise, and a planted reallocated leaf must fail the storage check.
+    Times follow a warm-up (a prefill and two steps); a profile of four
+    more steps gives each step's device busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import init_model
+    from repro_torch.models.params import count_params
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()    # earlier phases' tensors
+    t0 = time.perf_counter()
+    model = init_model(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, cache_len=S + N)
+    decode = make_serve_step(cfg)
+    tok, caches = prefill(model, {"tokens": prompts})      # warm-up
+    for i in range(2):
+        tok, caches = decode(model, {"tokens": tok, "caches": caches,
+                                     "pos": S + i})
+    del caches
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    tok, caches = prefill(model, {"tokens": prompts})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    storages = _cache_storages(caches)
+    out = [tok]
+    prev = torch.cuda.get_sync_debug_mode()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(N - 1):
+            tok, new = decode(model, {"tokens": tok, "caches": caches,
+                                      "pos": S + i})
+            if new is not caches:
+                raise AssertionError(f"{cfg.name}: decode returned a new "
+                                     f"cache tree")
+            out.append(tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    if _cache_storages(caches) != storages:
+        raise AssertionError(f"{cfg.name}: a cache leaf changed its storage")
+    # the two planted faults
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        int(tok[0, 0])
+        raised = False
+    except RuntimeError:
+        raised = True
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    key = next(iter(caches))
+    planted = dict(caches)
+    planted[key] = {"attn": {"k": caches[key]["attn"]["k"].clone(),
+                             "v": caches[key]["attn"]["v"]}}
+    if not raised or _cache_storages(planted) == storages:
+        raise AssertionError(f"{cfg.name}: the sync debug mode or the "
+                             f"storage check misses its planted fault")
+    del planted
+    gen_tok = torch.cat(out, 1).cpu()
+    peak = torch.cuda.max_memory_allocated()
+    # where a decode step's time goes: 4 steps under the profiler (at the
+    # first positions again), device-side events only
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(4):
+            tok, caches = decode(model, {"tokens": tok, "caches": caches,
+                                         "pos": S + i})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 4
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / 4
+    kernels = sum(e.count for e in dev_events) / 4
+    r = {"params": count_params(model), "batch": B, "prompt": S,
+         "new_tokens": N, "init_s": t_init, "prefill_ms": t_prefill * 1e3,
+         "prefill_tokens_per_s": B * S / t_prefill,
+         "decode_ms_per_token": t_decode / (N - 1) * 1e3,
+         "decode_tokens_per_s": B * (N - 1) / t_decode,
+         "max_memory_allocated": peak, "memory_allocated_before": before,
+         "profiled_step_wall_ms": wall, "profiled_step_device_busy_ms": busy,
+         "device_kernels_per_step": kernels,
+         "tokens": [gen_tok[b, :8].tolist() for b in range(2)]}
+    del model, caches
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase_lm_serving() -> dict:
+    """Phase 3f: gates 1–3 and the report per configuration."""
+    from repro_torch.configs import get_config, replace
+
+    out = {}
+    for arch, (B, S, N) in LM_SERVE.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        cut = replace(cfg, num_layers=LM_CUT_LAYERS[arch], dtype="float32")
+        log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
+            f"{cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}")
+        log(f"    gate 1, card = CPU port ({cut.num_layers} layers, fp32): "
+            f"{lm_gate_card_vs_cpu(cut)}")
+        dcut = replace(cut, moe_capacity=8.0) if cut.family == "moe" else cut
+        log(f"    gate 2, decode = forward ({dcut.num_layers} layers, fp32"
+            f"{', capacity 8.0' if cut.family == 'moe' else ''}): "
+            f"{lm_gate_decode_vs_forward(dcut)}")
+        r = lm_serve_full(cfg, B, S, N)
+        log(f"    gate 3, bf16 full depth: {N - 1} decode steps under the "
+            f"sync debug mode, cache storage kept; both planted faults "
+            f"caught")
+        log(f"    report: {json.dumps(r)} ({time.perf_counter() - t0:.1f} s)")
+        out[arch] = r
+    return out
+
+
 def previous_order_gains(caches, dvec, *, seed, n_total=None, fold="min",
                          score_affine=None):
     """The sieve gains of ``cat([seed, caches])`` in the order of fp32
@@ -2203,6 +2543,15 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = phase_mesh(DEVICE_REFS)
     log(f"    phase {time.perf_counter() - t0:.1f} s")
+    log("[3f] LM serving at full width (qwen3-0.6b, gemma3-1b, "
+        "granite-moe-3b-a800m; bf16)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops.LAUNCHES.clear()
+    phase_lm_serving()
+    log(f"    launches of the port's kernels: "
+        f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none); phase "
+        f"{time.perf_counter() - t0:.1f} s")
     # each path's own launches: the main path's four kernels, the serving
     # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}

@@ -19,6 +19,8 @@ from repro_torch.core.evaluator import EvalConfig
 from repro_torch.core.functions import FUNCTIONS, ExemplarClustering, SubmodularFunction
 from repro_torch.core.multiset import PackedMultiset, resolve_device
 from repro_torch.core.streaming import SieveState
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import DTYPES, DecoderLM, tree_map, cache_specs
 
 #: The JAX package's evaluation backends and their counterparts here.
 BACKENDS = {"jnp": "torch", "naive": "naive", "pallas": "cuda",
@@ -121,3 +123,57 @@ def sieve_state_from_arrays(fields, device=None) -> SieveState:
     return SieveState(**{
         name: torch.as_tensor(np.array(fields[name]), dtype=dt, device=dev)
         for name, dt in dtypes.items()})
+
+
+def tensor_from_array(a, device=None, dtype=None) -> torch.Tensor:
+    """A numpy array (a bfloat16 one too: ``ml_dtypes``' has no torch
+    counterpart in numpy, so its bits go across as int16) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=resolve_device(device),
+                dtype=t.dtype if dtype is None else dtype)
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree, device=None) -> DecoderLM:
+    """The port's :class:`~repro_torch.models.model.DecoderLM` from the
+    reference's ``init_model`` parameter tree as numpy arrays: ``embed``,
+    ``final_norm``, ``head`` (untied) and ``groups``, whose leaves are
+    stacked ``(count, …)`` over a group's layers. Leaves take the config's
+    dtype; shapes are checked against the port's own."""
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+    out = tree_map(lambda a: tensor_from_array(a, dev, dtype), tree)
+    for key, g in out["groups"].items():
+        count = next(_leaves(g)).shape[0]
+        out["groups"][key] = [tree_map(lambda t, i=i: t[i], g)
+                              for i in range(count)]
+    return DecoderLM(cfg, out)
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    else:
+        yield x
+
+
+def lm_caches_from_arrays(cfg: ModelConfig, tree, device=None) -> dict:
+    """A decode-cache tree of the reference (``forward``'s prefill or
+    decode caches as numpy arrays, stacked ``(count, B, buf, Hk, hd)``)
+    as the port's, checked against :func:`cache_specs` at its batch and
+    its longest buffer."""
+    dev = resolve_device(device)
+    out = tree_map(lambda a: tensor_from_array(a, dev), tree)
+    leaves = list(_leaves(out))
+    want = cache_specs(cfg, leaves[0].shape[1],
+                       max(t.shape[2] for t in leaves))
+    got = tree_map(lambda t: (tuple(t.shape), t.dtype), out)
+    spec = tree_map(lambda s: (tuple(s.shape), s.dtype), want)
+    if got != spec:
+        raise ValueError(f"cache tree {got} does not match cache_specs "
+                         f"{spec}")
+    return out

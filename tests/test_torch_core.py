@@ -370,7 +370,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 
 def test_chip_smoke_and_port_sources_import_no_jax():
-    files = [ROOT / "chip_smoke.py",
+    files = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py",
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
     for path in files:
         bad = [m for m in _imports(ast.parse(path.read_text())) if _foreign(m)]

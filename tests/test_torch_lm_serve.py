@@ -1,0 +1,211 @@
+"""The port's serving path (``repro_torch.train.step``: prefill, then
+greedy decode through the cache) against the JAX package's jitted steps,
+the ``examples/serve_lm_torch.py`` twin run end to end, and a census of
+the decode loop.
+
+Tolerances: fp32 greedy tokens identical to the reference's; bf16 logits
+within 1/16 of their max |value| of the reference's (``REL_BF16``: bf16
+keeps 8 bits, and the two packages round at different points of a layer
+— the MoE sum over K, for one, rounds once here and after every add
+there — so a logit moves by a few bf16 steps of the largest over a few
+layers; the largest reading on these inputs was 0.036, granite's). bf16
+tokens can flip on a tie, so they are not compared.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.models import model as JM
+from repro.train import step as JS
+from repro_torch import configs
+from repro_torch.analysis.census import take_census
+from repro_torch.convert import lm_params_from_arrays
+from repro_torch.models import model as TM
+from repro_torch.train.step import make_prefill_step, make_serve_step
+
+ROOT = Path(__file__).resolve().parents[1]
+REL_BF16 = 1 / 16
+NEW = 8     # tokens per request: the prefill's and 7 decode steps'
+B, P = 2, 12
+
+ARCHS = ["qwen3-0.6b", "gemma3-1b", "qwen3-32b", "stablelm-12b",
+         "pixtral-12b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"]
+
+
+def _batch(cfg, seed=3):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["frontend"] = rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _prefix(cfg) -> int:
+    return cfg.frontend_len if cfg.family == "vlm" else 0
+
+
+def _serve_torch(model, cfg, batch, n=NEW):
+    """The port's loop: tokens stay on the device until the end."""
+    pre = _prefix(cfg)
+    prefill = make_prefill_step(cfg, cache_len=pre + P + n)
+    decode = make_serve_step(cfg)
+    tok, caches = prefill(model, batch)
+    out = [tok]
+    for i in range(n - 1):
+        tok, caches = decode(model, {"tokens": tok, "caches": caches,
+                                     "pos": pre + P + i})
+        out.append(tok)
+    return torch.cat(out, dim=1), caches
+
+
+def _serve_jax(params, cfg, batch, n=NEW):
+    pre = _prefix(cfg)
+    prefill = jax.jit(JS.make_prefill_step(cfg, None, cache_len=pre + P + n))
+    decode = jax.jit(JS.make_serve_step(cfg, None))
+    tok, caches = prefill(params, jax.tree.map(jnp.asarray, batch))
+    out = [tok]
+    for i in range(n - 1):
+        tok, caches = decode(params, {"tokens": tok, "caches": caches,
+                                      "pos": jnp.int32(pre + P + i)})
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, axis=1))
+
+
+def _pair(arch, dtype="float32", seed=0):
+    jcfg = ref_configs.replace(ref_configs.get_reduced_config(arch),
+                               dtype=dtype)
+    cfg = configs.replace(configs.get_reduced_config(arch), dtype=dtype)
+    params, _ = JM.init_model(jcfg, jax.random.PRNGKey(seed))
+    model = lm_params_from_arrays(cfg, jax.tree.map(np.asarray, params),
+                                  device="cpu")
+    return jcfg, cfg, params, model
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_steps_match_reference_fp32(arch):
+    """Prefill + 7 decode steps: every greedy token equal to the
+    reference's steps'; the cache leaves keep their storage."""
+    jcfg, cfg, params, model = _pair(arch)
+    batch = _batch(cfg)
+    want = _serve_jax(params, jcfg, batch)
+    got, caches = _serve_torch(model, cfg,
+                               {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert got.dtype == torch.int32 and got.shape == (B, NEW)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b",
+                                  "granite-moe-3b-a800m", "pixtral-12b"])
+def test_bf16_logits_within_tolerance(arch):
+    """bf16 weights and activations: prefill logits, then decode logits
+    for the reference's own greedy continuation, fed to both."""
+    jcfg, cfg, params, model = _pair(arch, "bfloat16")
+    batch = _batch(cfg, seed=5)
+    pre = _prefix(cfg)
+    fwd = jax.jit(JM.forward, static_argnums=(1,),
+                  static_argnames=("mode", "cache_len", "remat"))
+    jl, jc = fwd(params, jcfg, jax.tree.map(jnp.asarray, batch),
+                 mode="prefill", cache_len=pre + P + NEW, remat=False)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if "frontend" in tb:
+        tb["frontend"] = tb["frontend"].to(torch.bfloat16)
+    with torch.no_grad():
+        tl, tc = TM.forward(model, tb, mode="prefill",
+                            cache_len=pre + P + NEW)
+        assert tl.dtype == torch.bfloat16
+        pairs = [(tl, jl)]
+        tok = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+        for i in range(NEW - 1):
+            jl, jc = fwd(params, jcfg, {"tokens": tok}, mode="decode",
+                         caches=jc, pos_offset=jnp.int32(pre + P + i),
+                         remat=False)
+            tl, tc = TM.forward(model, {"tokens": torch.from_numpy(
+                np.array(tok))}, mode="decode", caches=tc,
+                pos_offset=pre + P + i)
+            pairs.append((tl, jl))
+            tok = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+    for i, (t, j) in enumerate(pairs):
+        t, j = t.float().numpy(), np.asarray(j, np.float32)
+        err = float(np.abs(t - j).max())
+        assert err <= REL_BF16 * float(np.abs(j).max()), (i, err)
+
+
+def test_steps_reject_another_model():
+    cfg = configs.get_reduced_config("qwen3-0.6b")
+    other = TM.init_model(configs.get_reduced_config("qwen3-32b"), 0,
+                          device="cpu")
+    with pytest.raises(ValueError, match="qwen3-0.6b"):
+        make_prefill_step(cfg, 8)(other, {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)})
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m"])
+def test_decode_census_no_host_sync_per_token(arch):
+    """The decode loop at k and k + 1 tokens under the census: no host
+    sync and no host value staged, in total or per token; the cache
+    leaves keep their storage."""
+    cfg = configs.get_reduced_config(arch)
+    model = TM.init_model(cfg, 0, device="cpu")
+    batch = {"tokens": torch.from_numpy(_batch(cfg)["tokens"])}
+    decode = make_serve_step(cfg)
+    k = 6
+
+    def loop(n):
+        tok, caches = make_prefill_step(cfg, cache_len=P + k + 1)(model, batch)
+        ptrs = [t.untyped_storage().data_ptr()
+                for g in caches.values() for t in g["attn"].values()]
+        for i in range(n):
+            tok, new = decode(model, {"tokens": tok, "caches": caches,
+                                      "pos": P + i})
+            assert new is caches
+        assert ptrs == [t.untyped_storage().data_ptr()
+                        for g in caches.values() for t in g["attn"].values()]
+        return tok
+
+    _, a = take_census(loop, k)
+    _, b = take_census(loop, k + 1)
+    for c in (a, b):
+        assert c.syncs == [] and c.staging == [], (c.syncs, c.staging)
+    sa, sb = a.summary(), b.summary()
+    assert sb["ops"]["mm"] > sa["ops"]["mm"]     # the extra token ran
+
+
+def _run_example(*args, timeout=300):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, str(ROOT / "examples" /
+                                               "serve_lm_torch.py"), *args],
+                          capture_output=True, text=True, env=env,
+                          timeout=timeout)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "pixtral-12b",
+                                  "granite-moe-3b-a800m"])
+def test_serve_example_end_to_end_on_cpu(arch):
+    """The twin of ``examples/serve_lm.py``, with a prompt past gemma3's
+    window (16) so prefill rolls the ring and decode wraps it."""
+    proc = _run_example("--device", "cpu", "--arch", arch, "--batch", "2",
+                        "--prompt-len", "20", "--new-tokens", "20")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0] == f"arch={arch} batch=2 prompt=20 new=20 device=cpu"
+    assert lines[1].startswith("prefill: ") and "ms/token" in lines[1]
+    toks = [eval(ln.split("=> ")[1].rstrip(".")) for ln in lines[2:4]]
+    assert all(len(t) == 10 and all(0 <= x < 256 for x in t) for t in toks)
+
+
+def test_serve_example_needs_a_device():
+    """No fallback: without ``--device`` it serves on ``cuda`` or fails."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device serves")
+    proc = _run_example("--new-tokens", "2")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
