@@ -101,26 +101,32 @@ Phases (any failure exits non-zero before the result lines):
    device plan). Each rank's wall per plan and launches per kernel are
    printed beside the card's line; four ranks share one card, so the walls
    are not a scaling figure.
-   Then LM serving (phase 3f): ``qwen3-0.6b``, ``gemma3-1b`` and
-   ``granite-moe-3b-a800m`` through ``init_model``, ``make_prefill_step``
-   and ``make_serve_step``, random weights from a seed. Gate 1: each cut
-   to one period of its layer pattern (2 layers; 6 for gemma3) at full
-   width in fp32, 16 greedy tokens after a 40-token prompt on the card and
-   on the CPU with the same weights: identical tokens, logits within
-   ``LM_CARD_CPU_REL`` of their max (reported beside it: each side's gap
-   to the same steps replayed in float64 on the CPU). Gate 2: the same
-   cut models (MoE at
-   capacity 8.0, which drops nothing), each decoded position's logits
-   against the train-mode forward's within ``LM_DECODE_BOUND`` (gemma3
-   also across its window: decode wrapping the ring, and a prompt that
-   prefill rolls). Gate 3: the full models in bf16 (``LM_SERVE``), the
-   decode loop under ``torch.cuda.set_sync_debug_mode("error")`` with
-   every cache leaf keeping its storage. Each gate also catches a planted
-   fault: logits off by 1 %, a decode one position off, a host read in the
-   loop and a reallocated cache leaf. Reported, not gated: the bf16
-   tokens, prefill and decode times, tokens/s, peak memory, and a profile
-   of four decode steps (device busy time and kernels per step). The LM
-   path launches none of the port's kernels.
+   Then LM serving (phase 3f): ``qwen3-0.6b``, ``gemma3-1b``,
+   ``granite-moe-3b-a800m``, ``whisper-small`` (encoder-decoder over 1 500
+   seeded random frames), ``xlstm-1.3b`` (mLSTM and sLSTM) and
+   ``hymba-1.5b`` (attention and Mamba heads) through ``init_model``,
+   ``make_prefill_step`` and ``make_serve_step``, random weights from a
+   seed. Gate 1: each cut to one period of its layer pattern
+   (``LM_CUT``) at full width in fp32, 16 greedy tokens after a 40-token
+   prompt on the card and on the CPU with the same weights: identical
+   tokens, logits within ``LM_CARD_CPU_REL`` of their max (reported beside
+   it: each side's gap to the same steps replayed in float64 on the CPU).
+   Gate 2: the same cut models (MoE at capacity 8.0, which drops
+   nothing), each decoded position's logits against the train-mode
+   forward's within ``LM_DECODE_BOUND`` (also at ``LM_GATE2_PROMPTS``:
+   gemma3 and hymba across their windows, xlstm over a padded second
+   chunk). Gate 3: the full models in bf16 (``LM_SERVE``), the decode
+   loop under ``torch.cuda.set_sync_debug_mode("error")`` with every cache
+   leaf (recurrent state tuples and whisper's ``enc_out`` included)
+   keeping its storage. Each gate also catches a planted fault: logits
+   off by 1 %, a decode one position off (not for xlstm, which has no
+   positions), a decode that skips the in-place write of an ``ssm`` leaf
+   (xlstm, hymba), a host read in the loop and a reallocated cache leaf.
+   Reported, not gated: the bf16 tokens, prefill and decode times,
+   tokens/s, peak memory, a profile of four decode steps (device busy
+   time, its share of the step, kernels per step) and, for xlstm, the
+   share of prefill in the sLSTM's sequential loop. The LM path launches
+   none of the port's kernels.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -1618,15 +1624,32 @@ def phase_mesh(refs: dict, K=10, N=50_000):
 #: The LM serving phase (3f): each configuration at its published widths
 #: and depth in bf16, random weights from seed 0: (batch, prompt tokens,
 #: greedy tokens). gemma3's 600-token prompt is past its 512 window and not
-#: a multiple of it, so prefill rolls the ring, and decode wraps it.
+#: a multiple of it, so prefill rolls the ring, and decode wraps it;
+#: hymba's 1 100 does the same to its 1 024 window. whisper's 8 requests
+#: are 30-second audio windows (1 500 encoder frames each, seeded random)
+#: with a short decoder prompt, inside its 448-token decoder context.
 LM_SERVE = {"qwen3-0.6b": (8, 512, 64), "gemma3-1b": (4, 600, 64),
-            "granite-moe-3b-a800m": (8, 512, 64)}
-#: Depth of gates 1–2's models: one period of the layer pattern (gemma3's
-#: five local layers and its global one).
-LM_CUT_LAYERS = {"qwen3-0.6b": 2, "gemma3-1b": 6, "granite-moe-3b-a800m": 2}
+            "granite-moe-3b-a800m": (8, 512, 64),
+            "whisper-small": (8, 32, 96), "xlstm-1.3b": (8, 512, 64),
+            "hymba-1.5b": (4, 1100, 64)}
+#: Gates 1–2's models: one period of the layer pattern (gemma3's five
+#: local layers and its global one; xlstm's seven mLSTM and one sLSTM;
+#: hymba's full-attention layer and a sliding one; whisper's two encoder
+#: and two decoder layers).
+LM_CUT = {"qwen3-0.6b": dict(num_layers=2), "gemma3-1b": dict(num_layers=6),
+          "granite-moe-3b-a800m": dict(num_layers=2),
+          "whisper-small": dict(num_layers=2, encoder_layers=2),
+          "xlstm-1.3b": dict(num_layers=8),
+          "hymba-1.5b": dict(num_layers=2, full_attn_layers=(0,))}
+#: Gate 2's prompts beyond the first (40 tokens, 16 decoded): gemma3's
+#: window − 7 (decode wraps the ring) and window + 88 (prefill rolls it);
+#: xlstm's 100, two mLSTM chunks of which 28 steps are padding; hymba's
+#: 1 030, past its window.
+LM_GATE2_PROMPTS = {"gemma3-1b": (505, 600), "xlstm-1.3b": (100,),
+                    "hymba-1.5b": (1030,)}
 #: Gate 1, card against the CPU port (fp32, the same weights): logits
 #: within 1e-4 of their max |value|. Both add in fp32 in their own orders
-#: (cuBLAS against the CPU's BLAS, TF32 off) over two to six layers of
+#: (cuBLAS against the CPU's BLAS, TF32 off) over two to eight layers of
 #: widths up to 6 912; on the H100 runs the gap was 0.007–0.18 of the band,
 #: each side as far from a float64 replay as from the other.
 LM_CARD_CPU_REL = 1e-4
@@ -1659,10 +1682,46 @@ class _LogitsTap:
         self.M.forward = self.real
 
 
-def lm_greedy(model, prompts, n):
+class _SkippedStateWrite:
+    """A planted fault for gate 2: decode leaves the ``ssm`` state of each
+    recurrent group's first layer as prefill wrote it (the blocks write
+    their states through ``ssm._store``)."""
+
+    def __enter__(self):
+        from repro_torch.models import ssm as S
+
+        self.S, self.real = S, S._store
+
+        def store(cache, name, new):
+            dst = cache[name]
+            first = dst[0] if isinstance(dst, tuple) else dst
+            if not (name == "ssm" and first.storage_offset() == 0):
+                self.real(cache, name, new)
+
+        S._store = store
+        return self
+
+    def __exit__(self, *exc):
+        self.S._store = self.real
+
+
+def lm_frontend(cfg, B, gen, device, dtype) -> dict:
+    """whisper's encoder frames (B, frontend_len, d_model), seeded random;
+    nothing for a decoder-only family."""
+    import torch
+
+    if cfg.family != "encdec":
+        return {}
+    return {"frontend": torch.randn((B, cfg.frontend_len, cfg.d_model),
+                                    generator=gen, device=device,
+                                    dtype=torch.float32).to(dtype)}
+
+
+def lm_greedy(model, prompts, n, extra=None):
     """``n`` greedy tokens through the port's steps (prefill, then
-    ``n − 1`` serve steps). Returns (tokens (B, n) on the host, logits
-    (B, n, V) fp32 on the model's device, caches)."""
+    ``n − 1`` serve steps); ``extra``: the prefill batch's ``frontend``.
+    Returns (tokens (B, n) on the host, logits (B, n, V) fp32 on the
+    model's device, caches)."""
     import torch
 
     from repro_torch.train.step import make_prefill_step, make_serve_step
@@ -1672,7 +1731,7 @@ def lm_greedy(model, prompts, n):
     prefill = make_prefill_step(cfg, cache_len=S + n)
     decode = make_serve_step(cfg)
     with _LogitsTap() as tap:
-        tok, caches = prefill(model, {"tokens": prompts})
+        tok, caches = prefill(model, {"tokens": prompts, **(extra or {})})
         out = [tok]
         for i in range(n - 1):
             tok, caches = decode(model, {"tokens": tok, "caches": caches,
@@ -1681,10 +1740,14 @@ def lm_greedy(model, prompts, n):
     return torch.cat(out, 1).cpu(), torch.stack(tap.rows, 1), caches
 
 
-def lm_teacher_forced(model, tokens, pre, pos_shift=0):
-    """Prefill ``tokens[:, :pre]``, then decode the rest of ``tokens`` one
-    at a time through the serve step; each decoded position's logits
-    (B, S − pre, V) fp32."""
+def lm_teacher_forced(model, tokens, pre, pos_shift=0, extra=None,
+                      skip_write=False):
+    """Prefill ``tokens[:, :pre]`` (with ``extra``, the frontend), then
+    decode the rest of ``tokens`` one at a time through the serve step;
+    each decoded position's logits (B, S − pre, V) fp32. ``pos_shift`` and
+    ``skip_write`` plant gate 2's faults."""
+    import contextlib
+
     import torch
 
     from repro_torch.train.step import make_prefill_step, make_serve_step
@@ -1693,8 +1756,9 @@ def lm_teacher_forced(model, tokens, pre, pos_shift=0):
     S = tokens.shape[1]
     prefill = make_prefill_step(cfg, cache_len=S + pos_shift)
     decode = make_serve_step(cfg)
-    _, caches = prefill(model, {"tokens": tokens[:, :pre]})
-    with _LogitsTap() as tap:
+    _, caches = prefill(model, {"tokens": tokens[:, :pre], **(extra or {})})
+    fault = _SkippedStateWrite() if skip_write else contextlib.nullcontext()
+    with _LogitsTap() as tap, fault:
         for pos in range(pre, S):
             _, caches = decode(model, {"tokens": tokens[:, pos:pos + 1],
                                        "caches": caches,
@@ -1702,9 +1766,14 @@ def lm_teacher_forced(model, tokens, pre, pos_shift=0):
     return torch.stack(tap.rows, 1)
 
 
-def _cache_storages(caches) -> list:
-    return [t.untyped_storage().data_ptr()
-            for g in caches.values() for t in g["attn"].values()]
+def _cache_leaves(caches) -> list:
+    from repro_torch.models.model import tree_leaves
+
+    return [t for _, t in tree_leaves(caches)]
+
+
+def _storages(leaves) -> list:
+    return [t.untyped_storage().data_ptr() for t in leaves]
 
 
 def lm_gate_card_vs_cpu(cut, B=2, S=40, N=16) -> str:
@@ -1723,10 +1792,12 @@ def lm_gate_card_vs_cpu(cut, B=2, S=40, N=16) -> str:
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, cut.vocab_size, (B, S), generator=gen,
                             dtype=torch.int32)
+    extra = lm_frontend(cut, B, gen, "cpu", torch.float32)
     t0 = time.perf_counter()
-    tok_c, lg_c, _ = lm_greedy(cpu, prompts, N)
+    tok_c, lg_c, _ = lm_greedy(cpu, prompts, N, extra)
     t_cpu = time.perf_counter() - t0
-    tok_g, lg_g, _ = lm_greedy(model, prompts.cuda(), N)
+    tok_g, lg_g, _ = lm_greedy(model, prompts.cuda(), N,
+                               {k: v.cuda() for k, v in extra.items()})
     lg_g = lg_g.cpu()
     if not torch.equal(tok_g, tok_c):
         first = int((tok_g != tok_c).any(0).int().argmax())
@@ -1748,7 +1819,7 @@ def lm_gate_card_vs_cpu(cut, B=2, S=40, N=16) -> str:
     # capacity follows each call's token count)
     cpu.double()
     cpu.cfg = replace(cut, dtype="float64")
-    tok_d, lg_d, _ = lm_greedy(cpu, prompts, N)
+    tok_d, lg_d, _ = lm_greedy(cpu, prompts, N, extra)
     if torch.equal(tok_d, tok_c):
         e_g, e_c = (float((lg.double() - lg_d).abs().max()) / band
                     for lg in (lg_g, lg_c))
@@ -1762,53 +1833,90 @@ def lm_gate_card_vs_cpu(cut, B=2, S=40, N=16) -> str:
 
 def lm_gate_decode_vs_forward(cut, B=2, S=40, N=16) -> str:
     """Gate 2: each decoded position's logits on the card against the
-    train-mode forward's, within ``LM_DECODE_BOUND`` (scaled); a decode one
-    position off must fail it. gemma3 also runs across its window: a
-    prompt of window − 7 whose decode wraps the ring, and one of
-    window + 88 that prefill rolls."""
+    train-mode forward's, within ``LM_DECODE_BOUND`` (scaled), at 40
+    prompt tokens and at ``LM_GATE2_PROMPTS``. Each planted fault must
+    fail it: a decode one position off (where positions matter: not for
+    xlstm) and, for the recurrent families, a decode that skips the
+    in-place write of an ``ssm`` leaf."""
     import torch
 
     from repro_torch.models.model import forward, init_model
 
     model = init_model(cut, 0, device="cuda")
-    runs = [(S, N)]
-    if cut.sliding_window:
-        w = cut.sliding_window
-        runs += [(w - 7, N), (w + 88, N)]
+    runs = [(S, N)] + [(p, N) for p in LM_GATE2_PROMPTS.get(cut.name, ())]
+    faults = []
+    if cut.family != "ssm":
+        faults.append(("one off", dict(pos_shift=1)))
+    if cut.family in ("ssm", "hybrid"):
+        faults.append(("ssm write skipped", dict(skip_write=True)))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
+    extra = lm_frontend(cut, B, gen, "cuda", torch.float32)
     parts = []
     for pre, n in runs:
         tokens = torch.randint(0, cut.vocab_size, (B, pre + n), generator=gen,
                                device="cuda", dtype=torch.int32)
         with torch.no_grad():
-            full, _ = forward(model, {"tokens": tokens})
+            full, _ = forward(model, {"tokens": tokens, **extra})
         want = full[:, pre:].float()
         bound = LM_DECODE_BOUND * max(1.0, float(want.abs().max()))
-        got = lm_teacher_forced(model, tokens, pre)
+        got = lm_teacher_forced(model, tokens, pre, extra=extra)
         err = float((got - want).abs().max())
-        off = float((lm_teacher_forced(model, tokens, pre, pos_shift=1)
-                     - want).abs().max())
         if not err <= bound:
             raise AssertionError(f"{cut.name}: decode at {pre}..{pre + n} "
                                  f"is {err:.3e} from the forward > {bound:.3e}")
-        if not off > bound:
-            raise AssertionError(f"{cut.name}: the decode bound {bound:.3e} "
-                                 f"misses a decode one position off "
-                                 f"({off:.3e})")
+        caught = []
+        for what, kw in faults:
+            off = float((lm_teacher_forced(model, tokens, pre, extra=extra,
+                                           **kw) - want).abs().max())
+            if not off > bound:
+                raise AssertionError(f"{cut.name}: the decode bound "
+                                     f"{bound:.3e} misses a planted fault, "
+                                     f"{what} ({off:.3e})")
+            caught.append(f"{what}: {off / bound:.0f}x")
         parts.append(f"positions {pre}..{pre + n - 1}: err {err:.3e} = "
-                     f"{err / bound:.3f} of {bound:.3e} (one off: "
-                     f"{off / bound:.0f}x)")
+                     f"{err / bound:.3f} of {bound:.3e} ({', '.join(caught)})")
     return "; ".join(parts)
+
+
+def _slstm_share(model, prefill, batch) -> tuple:
+    """One more prefill with every sLSTM block timed between two
+    synchronizes: (its sLSTM blocks' ms, the whole prefill's ms)."""
+    import torch
+
+    from repro_torch.models import ssm as S
+
+    real, spent = S.slstm_block, []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    S.slstm_block = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        S.slstm_block = real
+    return sum(spent) * 1e3, total * 1e3
 
 
 def lm_serve_full(cfg, B, S, N) -> dict:
     """Gate 3 and the report: the full model in bf16, prefill of B × S,
     then N − 1 greedy steps under ``set_sync_debug_mode("error")``; every
-    cache leaf keeps its storage. A planted host read in the loop must
-    raise, and a planted reallocated leaf must fail the storage check.
-    Times follow a warm-up (a prefill and two steps); a profile of four
-    more steps gives each step's device busy time."""
+    cache leaf (tuples' leaves and whisper's ``enc_out`` too) keeps its
+    storage. A planted host read in the loop must raise, and a planted
+    reallocated leaf must fail the storage check. Times follow a warm-up
+    (a prefill and two steps); a profile of four more steps gives each
+    step's device busy time. For xlstm, the share of prefill in its sLSTM
+    blocks' sequential loop."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1828,9 +1936,11 @@ def lm_serve_full(cfg, B, S, N) -> dict:
     gen.manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                             device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts,
+             **lm_frontend(cfg, B, gen, "cuda", torch.bfloat16)}
     prefill = make_prefill_step(cfg, cache_len=S + N)
     decode = make_serve_step(cfg)
-    tok, caches = prefill(model, {"tokens": prompts})      # warm-up
+    tok, caches = prefill(model, batch)                   # warm-up
     for i in range(2):
         tok, caches = decode(model, {"tokens": tok, "caches": caches,
                                      "pos": S + i})
@@ -1838,10 +1948,11 @@ def lm_serve_full(cfg, B, S, N) -> dict:
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    tok, caches = prefill(model, {"tokens": prompts})
+    tok, caches = prefill(model, batch)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
-    storages = _cache_storages(caches)
+    leaves = _cache_leaves(caches)
+    storages = _storages(leaves)
     out = [tok]
     prev = torch.cuda.get_sync_debug_mode()
     t0 = time.perf_counter()
@@ -1858,7 +1969,7 @@ def lm_serve_full(cfg, B, S, N) -> dict:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    if _cache_storages(caches) != storages:
+    if _storages(_cache_leaves(caches)) != storages:
         raise AssertionError(f"{cfg.name}: a cache leaf changed its storage")
     # the two planted faults
     torch.cuda.set_sync_debug_mode("error")
@@ -1869,14 +1980,11 @@ def lm_serve_full(cfg, B, S, N) -> dict:
         raised = True
     finally:
         torch.cuda.set_sync_debug_mode(prev)
-    key = next(iter(caches))
-    planted = dict(caches)
-    planted[key] = {"attn": {"k": caches[key]["attn"]["k"].clone(),
-                             "v": caches[key]["attn"]["v"]}}
-    if not raised or _cache_storages(planted) == storages:
+    planted = [leaves[0].clone()] + leaves[1:]
+    if not raised or _storages(planted) == storages:
         raise AssertionError(f"{cfg.name}: the sync debug mode or the "
                              f"storage check misses its planted fault")
-    del planted
+    del planted, leaves
     gen_tok = torch.cat(out, 1).cpu()
     peak = torch.cuda.max_memory_allocated()
     # where a decode step's time goes: 4 steps under the profiler (at the
@@ -1902,9 +2010,16 @@ def lm_serve_full(cfg, B, S, N) -> dict:
          "decode_tokens_per_s": B * (N - 1) / t_decode,
          "max_memory_allocated": peak, "memory_allocated_before": before,
          "profiled_step_wall_ms": wall, "profiled_step_device_busy_ms": busy,
+         "profiled_step_busy_share": busy / wall,
          "device_kernels_per_step": kernels,
          "tokens": [gen_tok[b, :8].tolist() for b in range(2)]}
-    del model, caches
+    if cfg.family == "ssm":
+        del caches
+        r["slstm_prefill_ms"], r["slstm_timed_prefill_ms"] = _slstm_share(
+            model, prefill, batch)
+        r["slstm_prefill_share"] = (r["slstm_prefill_ms"]
+                                    / r["slstm_timed_prefill_ms"])
+    del model
     torch.cuda.empty_cache()
     return r
 
@@ -1917,9 +2032,12 @@ def phase_lm_serving() -> dict:
     for arch, (B, S, N) in LM_SERVE.items():
         t0 = time.perf_counter()
         cfg = get_config(arch)
-        cut = replace(cfg, num_layers=LM_CUT_LAYERS[arch], dtype="float32")
-        log(f"  {arch}: {cfg.num_layers} layers, d {cfg.d_model}, heads "
-            f"{cfg.num_heads}/{cfg.num_kv_heads}, vocab {cfg.vocab_size}")
+        cut = replace(cfg, dtype="float32", **LM_CUT[arch])
+        enc = (f", {cfg.encoder_layers} encoder layers over "
+               f"{cfg.frontend_len} frames" if cfg.encoder_layers else "")
+        log(f"  {arch}: {cfg.num_layers} layers{enc}, d {cfg.d_model}, "
+            f"heads {cfg.num_heads}/{cfg.num_kv_heads}, vocab "
+            f"{cfg.vocab_size}")
         log(f"    gate 1, card = CPU port ({cut.num_layers} layers, fp32): "
             f"{lm_gate_card_vs_cpu(cut)}")
         dcut = replace(cut, moe_capacity=8.0) if cut.family == "moe" else cut
@@ -2070,7 +2188,7 @@ def l2_flush(dev):
     return lambda: torch.amax(buf)
 
 
-def _device_times(calls, reps: int, tries: int = 3) -> dict:
+def _device_times(calls, reps: int, tries: int = 10) -> dict:
     """Device time (µs) by kernel name over ``reps`` rounds of ``calls``
     (profiled again, up to ``tries`` times, while the profiler reports no
     device activity at all)."""
@@ -2543,8 +2661,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches = phase_mesh(DEVICE_REFS)
     log(f"    phase {time.perf_counter() - t0:.1f} s")
-    log("[3f] LM serving at full width (qwen3-0.6b, gemma3-1b, "
-        "granite-moe-3b-a800m; bf16)")
+    log(f"[3f] LM serving at full width ({', '.join(LM_SERVE)}; bf16)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ops.LAUNCHES.clear()

@@ -7,7 +7,7 @@ of the chosen architecture, drawn from a seeded generator, is served
 through the port's prefill and serve steps; the generated tokens stay on
 the device until the loop ends.
 
-Run: PYTHONPATH=src python examples/serve_lm_torch.py [--arch gemma3-1b]
+Run: PYTHONPATH=src python examples/serve_lm_torch.py [--arch hymba-1.5b]
      [--device cpu]
 """
 import argparse
@@ -15,11 +15,9 @@ import time
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, get_config, get_reduced_config
-from repro_torch.models.model import PORTED_FAMILIES, init_model
+from repro_torch.configs import ARCH_IDS, get_reduced_config
+from repro_torch.models.model import init_model
 from repro_torch.train.step import make_prefill_step, make_serve_step
-
-ARCHS = [a for a in ARCH_IDS if get_config(a).family in PORTED_FAMILIES]
 
 
 def _sync(dev: torch.device) -> None:
@@ -29,7 +27,7 @@ def _sync(dev: torch.device) -> None:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCHS)
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--new-tokens", type=int, default=32)
@@ -48,7 +46,7 @@ def main():
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device=dev, dtype=torch.int32)
     batch = {"tokens": prompts}
-    if cfg.family == "vlm":
+    if cfg.family in ("encdec", "vlm"):
         gen.manual_seed(2)
         batch["frontend"] = torch.randn(
             (B, cfg.frontend_len, cfg.d_model), generator=gen, device=dev,

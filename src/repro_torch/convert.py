@@ -20,7 +20,8 @@ from repro_torch.core.functions import FUNCTIONS, ExemplarClustering, Submodular
 from repro_torch.core.multiset import PackedMultiset, resolve_device
 from repro_torch.core.streaming import SieveState
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import DTYPES, DecoderLM, tree_map, cache_specs
+from repro_torch.models import model as M
+from repro_torch.models.model import DTYPES, DecoderLM, cache_specs, tree_map
 
 #: The JAX package's evaluation backends and their counterparts here.
 BACKENDS = {"jnp": "torch", "naive": "naive", "pallas": "cuda",
@@ -140,37 +141,47 @@ def tensor_from_array(a, device=None, dtype=None) -> torch.Tensor:
 def lm_params_from_arrays(cfg: ModelConfig, tree, device=None) -> DecoderLM:
     """The port's :class:`~repro_torch.models.model.DecoderLM` from the
     reference's ``init_model`` parameter tree as numpy arrays: ``embed``,
-    ``final_norm``, ``head`` (untied) and ``groups``, whose leaves are
-    stacked ``(count, …)`` over a group's layers. Leaves take the config's
-    dtype; shapes are checked against the port's own."""
+    ``final_norm``, ``head`` (untied), ``dec_pos`` (encdec) and
+    ``groups``, whose leaves are stacked ``(count, …)`` over a group's
+    layers. Each leaf takes its spec's dtype (the config's, or fp32 for
+    ``a_log``); shapes are checked against the port's own."""
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
-    out = tree_map(lambda a: tensor_from_array(a, dev, dtype), tree)
-    for key, g in out["groups"].items():
-        count = next(_leaves(g)).shape[0]
-        out["groups"][key] = [tree_map(lambda t, i=i: t[i], g)
-                              for i in range(count)]
-    return DecoderLM(cfg, out)
+
+    def unstack(g):
+        count = M.tree_leaves(g)[0][1].shape[0]
+        return [tree_map(lambda a, i=i: a[i], g) for i in range(count)]
+
+    def leaf(s, a, path):
+        return tensor_from_array(a, dev, M.leaf_dtype(s, dtype))
+
+    tree = {**tree, "groups": {k: unstack(g)
+                               for k, g in tree["groups"].items()}}
+    return DecoderLM(cfg, M.spec_map(leaf, M.param_specs(cfg), tree))
 
 
-def _leaves(x):
-    if isinstance(x, dict):
-        for v in x.values():
-            yield from _leaves(v)
+def _cache_dims(tree) -> tuple:
+    """(B, cache_len) of a cache tree: the batch of its leaves, the
+    longest self-attention buffer (1 where there is none: the recurrent
+    states do not depend on it)."""
+    if "enc_out" in tree:
+        B = tree["enc_out"].shape[0]
     else:
-        yield x
+        B = M.tree_leaves(tree)[0][1].shape[1]
+    bufs = [g["attn"]["k"].shape[2] for k, g in tree.items()
+            if k != "enc_out" and isinstance(g, dict) and "attn" in g]
+    return B, max(bufs, default=1)
 
 
 def lm_caches_from_arrays(cfg: ModelConfig, tree, device=None) -> dict:
     """A decode-cache tree of the reference (``forward``'s prefill or
-    decode caches as numpy arrays, stacked ``(count, B, buf, Hk, hd)``)
-    as the port's, checked against :func:`cache_specs` at its batch and
-    its longest buffer."""
+    decode caches as numpy arrays: dicts of stacked ``(count, B, …)``
+    leaves, the recurrent states as tuples, whisper's ``enc_out``) as the
+    port's, checked against :func:`cache_specs` at the tree's batch and
+    its longest self-attention buffer."""
     dev = resolve_device(device)
     out = tree_map(lambda a: tensor_from_array(a, dev), tree)
-    leaves = list(_leaves(out))
-    want = cache_specs(cfg, leaves[0].shape[1],
-                       max(t.shape[2] for t in leaves))
+    want = cache_specs(cfg, *_cache_dims(out))
     got = tree_map(lambda t: (tuple(t.shape), t.dtype), out)
     spec = tree_map(lambda s: (tuple(s.shape), s.dtype), want)
     if got != spec:

@@ -153,8 +153,9 @@ def _proj_heads(x, w):
 def attention(p, cfg, x, *, mask_kind: str = "causal",
               window: Optional[int] = None, theta: Optional[float] = None,
               mode: str = "train", pos_offset: int = 0,
-              cache: Optional[dict] = None, cache_len: Optional[int] = None):
-    """Self-attention. Returns (y, cache | None).
+              cache: Optional[dict] = None, cache_len: Optional[int] = None,
+              cross_x: Optional[torch.Tensor] = None):
+    """Self- or cross-attention. Returns (y, cache | None).
 
     ``prefill`` writes position p of the prompt at slot ``p % buf`` of
     ``cache`` (``{"k", "v"}``, each (B, buf, Hk, hd)) and zeroes the rest;
@@ -163,41 +164,59 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
     one token at host position ``pos_offset``, writes its K/V row in place
     at its slot (``pos % buf`` on a sliding layer) and attends to the
     slots written within the window.
+
+    With ``cross_x`` (B, F, d), the encoder's output, K/V come from it:
+    ``prefill`` fills an F-slot cache, ``decode`` reads that cache
+    unchanged, and neither RoPE nor the k-norm applies.
     """
     B, S, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hk
     theta = cfg.rope_theta if theta is None else theta
+    is_cross = cross_x is not None
+    if mode == "decode" and cache is None:
+        raise ValueError("decode needs the layer's cache")
 
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    if is_cross and mode == "decode":
+        k, v = cache["k"], cache["v"]
+    else:
+        src = cross_x if is_cross else x
+        k = _proj_heads(src, p["wk"])
+        v = _proj_heads(src, p["wv"])
     if "q_norm" in p:            # per head, before RoPE
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+        if not is_cross:
+            k = rms_norm(p["k_norm"], k, cfg.norm_eps)
 
     dev = x.device
     if mode == "decode":
-        if cache is None:
-            raise ValueError("decode needs the layer's cache")
         q_pos = torch.full((S,), pos_offset, dtype=torch.int32, device=dev)
     else:
         q_pos = torch.arange(S, dtype=torch.int32, device=dev)
-    q = rope(q, q_pos, theta)
-    k = rope(k, q_pos, theta)
+    if not is_cross:
+        q = rope(q, q_pos, theta)
+        k = rope(k, q_pos, theta)
 
     if mode in ("train", "prefill"):
-        kv_pos = q_pos
+        kv_len = k.shape[1]
+        kv_pos = (torch.arange(kv_len, dtype=torch.int32, device=dev)
+                  if is_cross else q_pos)
         if S >= _BLOCK_Q_THRESHOLD and S % _BLOCK_Q == 0:
             out = _sdpa_blocked(q, k, v, kv_pos, mask_kind, window, g)
         else:
-            bias = _mask_bias(mode, mask_kind, S, S, q_pos, kv_pos, None,
-                              window)
+            bias = _mask_bias(mode, mask_kind, S, kv_len, q_pos, kv_pos,
+                              None, window)
             out = _sdpa(q, k, v, bias, g)
         if mode == "prefill":
-            cache = _prefill_cache(k, v, cache, cache_len, mask_kind, window)
+            cache = _prefill_cache(k, v, cache,
+                                   None if is_cross else cache_len,
+                                   mask_kind, window)
         else:
             cache = None
+    elif mode == "decode" and is_cross:
+        bias = torch.zeros((S, k.shape[1]), dtype=torch.float32, device=dev)
+        out = _sdpa(q, k, v, bias, g)
     elif mode == "decode":
         kc, vc = cache["k"], cache["v"]
         buf = kc.shape[1]

@@ -21,8 +21,9 @@ def _check_cfg(model, cfg: ModelConfig) -> None:
 
 def make_prefill_step(cfg: ModelConfig, cache_len: int):
     """``prefill_step(model, batch) -> (next_tok (B, 1) int32, caches)``:
-    the prompt's forward, a cache of ``cache_len`` allocated once and
-    filled, and the greedy token after the prompt."""
+    the prompt's forward (``batch["frontend"]`` too, for ``vlm`` and
+    ``encdec``), a cache of ``cache_len`` allocated once and filled, and
+    the greedy token after the prompt."""
     def prefill_step(model, batch):
         _check_cfg(model, cfg)
         with torch.no_grad():
@@ -38,7 +39,7 @@ def make_serve_step(cfg: ModelConfig):
     """One greedy decode step: ``serve_step(model, {"tokens": (B, 1),
     "caches": ..., "pos": int}) -> (next_tok (B, 1) int32, caches)``. The
     caches are updated in place; ``pos`` is the host position of the
-    token."""
+    token. No ``frontend``: an encoder's output is read from the caches."""
     def serve_step(model, batch):
         _check_cfg(model, cfg)
         with torch.no_grad():

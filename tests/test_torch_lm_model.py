@@ -1,8 +1,8 @@
 """The port's LM assembly (``repro_torch.models.model``) against the JAX
 package's ``forward``, with the reference's random parameters carried
-across by ``convert.lm_params_from_arrays``, for every reduced config of
-the ported families (``dense``, ``moe``, ``vlm``), in train, prefill and
-decode.
+across by ``convert.lm_params_from_arrays``, for every reduced config
+(all six families: ``dense``, ``moe``, ``vlm``, ``encdec``, ``ssm``,
+``hybrid``), in train, prefill and decode.
 
 Tolerances: fp32 logits and caches within 1e-5 of their max |value|
 (``REL``); fp32 greedy tokens identical; decode against the port's own
@@ -11,6 +11,7 @@ full forward within the reference's bound, 5e-4 (``tests/test_models.py``).
 import copy
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +34,11 @@ REL = 1e-5
 DECODE_BOUND = 5e-4
 
 ARCHS = ["qwen3-0.6b", "gemma3-1b", "qwen3-32b", "stablelm-12b",
-         "pixtral-12b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b"]
-UNPORTED = ["xlstm-1.3b", "whisper-small", "hymba-1.5b"]
+         "pixtral-12b", "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+         "whisper-small", "xlstm-1.3b", "hymba-1.5b"]
+#: The families whose caches hold more than K/V: recurrent state tuples,
+#: conv states, whisper's encoder output.
+NEW_FAMILIES = ["whisper-small", "xlstm-1.3b", "hymba-1.5b"]
 B, S, PRE = 2, 16, 8
 
 
@@ -52,11 +56,7 @@ def _close(got, want, rel=REL, what=""):
     assert err <= rel * scale, f"{what}: max err {err:.3e} > {rel} x {scale:.3e}"
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [(f"{k}/{p}", t) for k in sorted(tree)
-                for p, t in _leaves(tree[k])]
-    return [("", tree)]
+_leaves = TM.tree_leaves
 
 
 def _same_caches(got, want, what):
@@ -75,7 +75,7 @@ def _jit_forward():
 def _inputs(cfg, B=B, S=S, seed=1):
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
-    if cfg.family == "vlm":
+    if cfg.family in ("encdec", "vlm"):
         batch["frontend"] = rng.standard_normal(
             (B, cfg.frontend_len, cfg.d_model)).astype(np.float32)
     return batch
@@ -191,8 +191,9 @@ def test_cache_specs_match_prefill(case):
     want = [(p, tuple(s.shape), s.dtype) for p, s in _leaves(specs)]
     assert got == want
     ref = JM.cache_specs(ref_configs.get_reduced_config(case["arch"]), B, P + S)
-    assert [tuple(t.shape) for _, t in _leaves(caches)] == [
-        tuple(s.shape) for s in jax.tree.leaves(ref)]
+    assert [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for _, t in _leaves(caches)] == [
+        (tuple(s.shape), jnp.dtype(s.dtype).name) for s in jax.tree.leaves(ref)]
 
 
 def test_param_counts(case):
@@ -224,14 +225,46 @@ def test_configs_match_reference(arch):
     assert cfg.dtype == "float32" and cfg.name == "qwen3-0.6b"
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.get_reduced_config(arch)
-    for call in (lambda: TM.init_model(cfg, 0, device="cpu"),
-                 lambda: TM.cache_specs(cfg, 1, 8),
-                 lambda: TM.param_specs(cfg)):
-        with pytest.raises(NotImplementedError, match=cfg.family):
-            call()
+def _port_param_shapes(model) -> dict:
+    """Path → (shape, dtype, layers) of the port's parameters, a group's
+    per-layer trees folded into one entry (all layers alike)."""
+    out = {}
+    for name, t in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "groups":     # groups.<key>.<layer>.<path>
+            key = "/".join(["", "groups", parts[1], *parts[3:]])
+            shape, dtype, n = out.get(key, (tuple(t.shape), t.dtype, 0))
+            assert (shape, dtype) == (tuple(t.shape), t.dtype), name
+            out[key] = (shape, dtype, n + 1)
+        else:
+            out["/" + "/".join(parts)] = (tuple(t.shape), t.dtype, None)
+    return out
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_init_model_matches_reference_tree(arch):
+    """Every architecture builds on the CPU, and the drawn model's tree has
+    the reference's paths, shapes and dtypes, in bf16: every leaf bf16 but
+    ``a_log``, fp32 in both."""
+    cfg = configs.replace(configs.get_reduced_config(arch), dtype="bfloat16")
+    jcfg = ref_configs.replace(ref_configs.get_reduced_config(arch),
+                               dtype="bfloat16")
+    model = TM.init_model(cfg, 0, device="cpu")
+    got = _port_param_shapes(model)
+    want = dict(TM.tree_leaves(jax.eval_shape(
+        lambda k: JM.init_model(jcfg, k)[0], jax.random.PRNGKey(0))))
+    assert sorted(got) == sorted(want)
+    for path, (shape, dtype, layers) in got.items():
+        w = want[path]
+        assert shape == (w.shape if layers is None else w.shape[1:]), path
+        assert layers in (None, w.shape[0]), path
+        assert str(dtype).removeprefix("torch.") == jnp.dtype(w.dtype).name, \
+            path
+    a_log = [p for p in got if p.endswith("/a_log")]
+    assert bool(a_log) == (cfg.family == "hybrid")
+    assert all(got[p][1] == torch.float32 for p in a_log)
+    assert count_params(model) == sum(math.prod(w.shape)
+                                      for w in want.values())
 
 
 def test_init_distribution_matches_reference():
@@ -287,6 +320,24 @@ def test_init_is_seeded():
     a, b, c = (TM.init_model(cfg, s, device="cpu") for s in (0, 0, 1))
     assert torch.equal(a.embed["w"], b.embed["w"])
     assert not torch.equal(a.embed["w"], c.embed["w"])
+
+
+@pytest.mark.parametrize("length", [16, 1500])
+def test_sinusoid_matches_reference(length):
+    """Whisper's frame positions, at the reduced and the published
+    ``frontend_len``. Both tables round the angle to fp32, so at 1 500 rad
+    they cannot agree closer than that rounding: the port is held to half
+    an fp32 ulp of its largest angle."""
+    want = np.asarray(JM._sinusoidal(length, 768))
+    got = TM._sinusoidal(length, 768, "cpu").numpy()
+    tol = 0.5 * float(np.spacing(np.float32(length - 1)))
+    assert got.dtype == np.float32
+    assert float(np.abs(got - want).max()) <= tol
+
+
+def test_unknown_init_raises():
+    with pytest.raises(ValueError, match="unknown init"):
+        TM._materialize(TM.Leaf((2,), "ones"), None, torch.float32, "cpu")
 
 
 def test_gemma_ring_cache_long_decode():
@@ -384,3 +435,63 @@ def test_bf16_arrays_carry_their_bits():
     t = tensor_from_array(a, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))
+
+
+def test_params_keep_a_log_fp32_in_a_bf16_model():
+    """``lm_params_from_arrays`` gives each leaf its spec's dtype: Mamba's
+    ``a_log`` stays fp32 (bit for bit) while the rest is bf16."""
+    jcfg = ref_configs.replace(ref_configs.get_reduced_config("hymba-1.5b"),
+                               dtype="bfloat16")
+    cfg = configs.replace(configs.get_reduced_config("hymba-1.5b"),
+                          dtype="bfloat16")
+    params, _ = JM.init_model(jcfg, jax.random.PRNGKey(0))
+    model = lm_params_from_arrays(cfg, jax.tree.map(np.asarray, params),
+                                  device="cpu")
+    for key in ("g0_hybrid_full", "g1_hybrid_sw"):
+        mamba = model.groups[key][0]["mamba"]
+        assert mamba["a_log"].dtype == torch.float32
+        assert mamba["w_in"].dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            mamba["a_log"].numpy(),
+            np.asarray(params["groups"][key]["mamba"]["a_log"][0]))
+
+
+def _ref_prefill_cache(arch, cache_len=S):
+    """Random arrays in the shape of the reference's prefill cache tree."""
+    jcfg = ref_configs.get_reduced_config(arch)
+    batch = jax.tree.map(jnp.asarray, _cut(_inputs(jcfg), 0, PRE))
+    spec = jax.eval_shape(
+        lambda k: JM.forward(JM.init_model(jcfg, k)[0], jcfg, batch,
+                             mode="prefill", cache_len=cache_len,
+                             remat=False)[1], jax.random.PRNGKey(0))
+    rng = np.random.default_rng(9)
+    return jax.tree.map(lambda s: np.asarray(jnp.asarray(
+        rng.standard_normal(s.shape), s.dtype)), spec)
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_caches_round_trip_new_families(arch):
+    """``lm_caches_from_arrays`` takes the reference's cache tree (state
+    tuples, conv states, ``enc_out``), its batch and buffer read off the
+    tree, and keeps every leaf's bits and structure."""
+    cfg = configs.get_reduced_config(arch)
+    tree = _ref_prefill_cache(arch)
+    got = lm_caches_from_arrays(cfg, tree, device="cpu")
+    assert [p for p, _ in _leaves(got)] == [p for p, _ in _leaves(tree)]
+    for (p, g), (_, w) in zip(_leaves(got), _leaves(tree)):
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=p)
+    assert ("enc_out" in got) == (cfg.family == "encdec")
+    assert any(type(v) is tuple for g in got.values() if isinstance(g, dict)
+               for v in g.values()) == (cfg.family == "ssm")
+    assert TM.cache_specs(cfg, B, S).keys() == got.keys()
+
+
+@pytest.mark.parametrize("arch,other", [("xlstm-1.3b", "hymba-1.5b"),
+                                        ("hymba-1.5b", "gemma3-1b"),
+                                        ("whisper-small", "qwen3-0.6b"),
+                                        ("qwen3-0.6b", "whisper-small")])
+def test_caches_of_another_family_are_rejected(arch, other):
+    tree = _ref_prefill_cache(arch)
+    with pytest.raises(ValueError, match="cache"):
+        lm_caches_from_arrays(configs.get_reduced_config(other), tree,
+                              device="cpu")
