@@ -125,8 +125,37 @@ Phases (any failure exits non-zero before the result lines):
    Reported, not gated: the bf16 tokens, prefill and decode times,
    tokens/s, peak memory, a profile of four decode steps (device busy
    time, its share of the step, kernels per step) and, for xlstm, the
-   share of prefill in the sLSTM's sequential loop. The LM path launches
-   none of the port's kernels.
+   share of prefill in the sLSTM's sequential loop. The LM serving path
+   launches none of the port's kernels.
+   Then LM training with curation (phase 3g), TF32 off for the fp32
+   gates. Gate 1: ``qwen3-0.6b``, ``granite-moe-3b-a800m`` and
+   ``xlstm-1.3b`` at ``LM_CUT`` in fp32, one train step on the card and on
+   the CPU from the same state after two warm steps on the batch's tokens
+   shuffled (B = 2, 40 tokens):
+   loss, grad norm and every leaf of the updated params, master, m and v
+   within ``LM_TRAIN_CARD_CPU_REL`` (beside it, each side's distance from
+   the step replayed in float64 on the card), the card's master also
+   within ``LM_TRAIN_UPDATE_REL`` of its own update recomputed in float64,
+   its params the master's cast; a planted update without bias correction
+   on one leaf must exceed both bands.
+   Gate 2, on the card at ``qwen3-0.6b``'s cut: ``microbatches=4`` = 1 within 1e-4,
+   ``remat`` on = off bit for bit, and 4 steps through ``train()`` with a
+   checkpoint at 2 and a resume = 4 straight steps bit for bit, under
+   ``torch.use_deterministic_algorithms(True)``; a planted resume with m
+   and v at zero must differ. Gate 3: ``qwen3-0.6b`` uncut in bf16 through
+   ``train()`` over ``token_batches(..., curation=CurationConfig(256, 64),
+   eval_cfg=EvalConfig(backend="cuda"))`` (``LM_TRAIN_FULL``: 24 steps of
+   8 × 512 over 3 windows): every loss finite, the last below the first,
+   each window's selection on the card held round by round against the
+   ``torch`` backend's gains on the CPU at the card's own caches (the
+   CPU's best, or a tie within both sides' rounding), and ``gain_eval``
+   launched 64 times per window over ``train()`` (``train_launches``).
+   Reported: ms per step, tokens/s of the steps and of the whole loop
+   with its curations, peak memory,
+   MFU against the dense bf16 peak, the busy share of one profiled step,
+   the curation's ms per window (host embedding, selection) and
+   ``gain_eval`` at the curation's shape (n = m = 256, d = 64) against its
+   plain version, with its device time, ``V @ V.T``'s and its bound.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -2053,6 +2082,750 @@ def phase_lm_serving() -> dict:
     return out
 
 
+#: Phase 3g, LM training with curation. Gate 1 (card = CPU port, fp32 at
+#: ``LM_CUT``): these three configurations, dense, MoE routing with its
+#: drops, and recurrence; the batch of each step (B, S).
+LM_TRAIN_GATE1 = ("qwen3-0.6b", "granite-moe-3b-a800m", "xlstm-1.3b")
+LM_TRAIN_GATE_BATCH = (2, 40)
+#: Gate 3: qwen3-0.6b uncut in bf16, ``token_batches(vocab, B, S,
+#: steps, curation=CurationConfig(window, select))`` on the ``cuda``
+#: backend: 3 windows of 256 × 512 tokens, 64 kept from each, 8 batches of
+#: 8 × 512 per window.
+LM_TRAIN_FULL = dict(arch="qwen3-0.6b", B=8, S=512, steps=24, window=256,
+                     select=64, lr=1e-3, warmup=4)
+#: Gate 1's band, card against the CPU port: the loss, the grad norm and
+#: every leaf of the updated params, master, m and v within 1e-4 of the
+#: CPU side's max |value|, the serving gate's band (``LM_CARD_CPU_REL``).
+#: Both sides start from the same state after two warm steps on the
+#: compared batch's tokens, shuffled: AdamW divides each element's step by
+#: its own gradient history, so an element with no history and a
+#: near-cancelling gradient moves by about lr·sign(g), which fp32 leaves
+#: undecided on either side. At the full vocabulary that is every row a
+#: step sees first: after warm steps on other tokens, the qwen3 cut's
+#: embedding master parted at such rows, each side as far from a float64
+#: replay as from the other. The shuffled tokens give every row the step
+#: touches a history in other contexts. Card and CPU add
+#: the same fp32 products in their own orders (cuBLAS against the CPU's
+#: BLAS, TF32 off) through the backward of two to eight layers; on the
+#: H100 their gradients were within 1.9e-5 of each other and of a float64
+#: replay, leaf by leaf, at these cuts. m and v carry the step's gradient
+#: linearly (v: its square) and the clip scale, so they hold the grad norm
+#: too: the CPU's ``_foreach_norm`` left it 3e-5 (qwen3) and 2.6e-4
+#: (xlstm) low at these widths, which this gate caught.
+LM_TRAIN_CARD_CPU_REL = 1e-4
+#: Gate 1's second band, on the card alone: its updated master (and so the
+#: params, its cast) against its own update recomputed in float64 from its
+#: new m and v, the old master and the step's lr (the reference's formula:
+#: ``master − lr·(m̂ / (√v̂ + eps) + wd·master)``), within 1e-6 of the
+#: leaf's max |value| (a few fp32 roundings of an update of at most a few
+#: lr).
+LM_TRAIN_UPDATE_REL = 1e-6
+#: ``gain_eval`` against its plain version at the curation's shape
+#: (n = m = 256, d = 64): within 1e-4 of the largest gain. The gains are
+#: means over 256 rows of small relus (about 1.6e-5 at the first window),
+#: while the Gram identity rounds each distance at eps·(‖v‖² + ‖c‖²),
+#: about 5e-4 of the largest gain there, so phase 2's absolute band (1e-5
+#: times at least 1) would pass a 1 % error and its relative ``MAIN_REL``
+#: sits under the rounding; the 256 rows average it to 2.9e-5 (H100).
+LM_GAIN_REL = 1e-4
+#: Gate 2, ``microbatches=4`` against one batch: the reference's own bound
+#: (``tests/test_data_and_trainer.py``), on loss and on every parameter.
+LM_TRAIN_MICROBATCH_BOUND = 1e-4
+#: The optimizer of gates 1–2 (warm-up 2, so the gates' third step is on
+#: the cosine).
+LM_TRAIN_GATE_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10)
+def _train_batch(cfg, B, S, gen, device):
+    import torch
+
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         dtype=torch.int32).to(device)
+    return {"tokens": toks[:, :S], "labels": toks[:, 1:]}
+
+
+def _state_on(cfg, state, device):
+    """A copy of a train state on ``device``; ``cfg`` may widen the model
+    to float64 (the replay), the optimizer's state stays fp32."""
+    import copy
+
+    import torch
+
+    model = copy.deepcopy(state["params"]).to(device)
+    if cfg.dtype == "float64":
+        model.double()
+    elif cfg.dtype != model.cfg.dtype:
+        raise ValueError(f"{model.cfg.dtype} -> {cfg.dtype}")
+    model.cfg = cfg
+    opt = {k: {n: t.to(device, copy=True) for n, t in state["opt"][k].items()}
+           for k in ("master", "m", "v")}
+    opt["step"] = state["opt"]["step"].to(device, copy=True)
+    if not torch.equal(opt["step"].cpu(), state["opt"]["step"].cpu()):
+        raise AssertionError("the step did not copy")
+    return {"params": model, "opt": opt}
+
+
+def _named(state, part) -> dict:
+    """``{reference path: [tensor per layer]}`` of one part of a train
+    state: ``params`` or an optimizer dict (``opt/m`` …)."""
+    from repro_torch.convert import lm_ref_leaves
+
+    if part == "params":
+        return lm_ref_leaves(state["params"].named_parameters())
+    return lm_ref_leaves(state["opt"][part.split("/")[1]].items())
+
+
+def _state_gap(got, want, parts=("params", "opt/master", "opt/m",
+                                  "opt/v")) -> tuple:
+    """Largest max|got − want| / max|want| over the leaves under ``parts``
+    of two train states (a leaf: a reference path, its layers together),
+    computed in float64 on the card, and its leaf; the steps
+    must be equal."""
+    import torch
+
+    if int(got["opt"]["step"]) != int(want["opt"]["step"]):
+        raise AssertionError(f"steps differ: {int(got['opt']['step'])} vs "
+                             f"{int(want['opt']['step'])}")
+    dev = "cuda"
+    worst = (0.0, "")
+    with torch.no_grad():
+        for part in parts:
+            g, w = _named(got, part), _named(want, part)
+            for path, ts in w.items():
+                err = scale = 0.0
+                for a, b in zip(g[path], ts):
+                    b = b.to(dev).double()
+                    err = max(err, float((a.to(dev).double() - b).abs()
+                                         .max()))
+                    scale = max(scale, float(b.abs().max()))
+                worst = max(worst, (err / (scale or 1.0),
+                                    f"/{part}/{'/'.join(path)}"))
+    return worst
+
+
+def _update_gap(state, master_before: dict, lr: float, step: int,
+                opt) -> tuple:
+    """Largest gap, over the leaves, between a state's new master and the
+    reference's update recomputed in float64 from the state's own new m
+    and v, ``master_before`` (the old master by parameter name), the
+    step's fp32 lr and its step, relative to the leaf's max |value|; the
+    params must be the master cast to their dtype, bit for bit."""
+    import torch
+
+    from repro_torch.convert import lm_ref_leaves
+
+    bc1 = 1 - opt.b1 ** (step + 1)
+    bc2 = 1 - opt.b2 ** (step + 1)
+    o = state["opt"]
+    params = dict(state["params"].named_parameters())
+    gaps: dict = {}
+    with torch.no_grad():
+        for name, new in o["master"].items():
+            par = params[name]
+            if not torch.equal(par, new.to(par.dtype)):
+                raise AssertionError(f"{name} is not its master's cast")
+            m, v = o["m"][name].double(), o["v"][name].double()
+            old = master_before[name].to(new.device).double()
+            want = old - lr * ((m / bc1) / (torch.sqrt(v / bc2) + opt.eps)
+                               + opt.weight_decay * old)
+            gaps[name] = (float((new.double() - want).abs().max()),
+                          float(want.abs().max()))
+    worst = (0.0, "")
+    for path, pairs in lm_ref_leaves(gaps.items()).items():
+        err, scale = max(e for e, _ in pairs), max(sc for _, sc in pairs)
+        worst = max(worst, (err / (scale or 1.0), "/" + "/".join(path)))
+    return worst
+
+
+class _NoBiasCorrection:
+    """Gate 1's planted fault: ``adamw_update`` without the bias
+    correction on one leaf (``embed.w``): its master and parameter take
+    ``m / (√v + eps)`` where the update takes ``m̂ / (√v̂ + eps)``."""
+
+    def __init__(self, leaf="embed.w"):
+        self.leaf = leaf
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.train import step as St
+
+        self.St, self.real = St, St.adamw_update
+        real, leaf = self.real, self.leaf
+
+        def faulty(cfg, grads, opt_state, params):
+            i = list(opt_state["master"]).index(leaf)
+            master0 = opt_state["master"][leaf].clone()
+            m0, v0 = opt_state["m"][leaf].clone(), opt_state["v"][leaf].clone()
+            out = real(cfg, grads, opt_state, params)
+            lr, gnorm = out[1]["lr"], out[1]["grad_norm"]
+            with torch.no_grad():
+                scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+                g = grads[i].float() * scale
+                m = cfg.b1 * m0 + (1 - cfg.b1) * g
+                v = cfg.b2 * v0 + (1 - cfg.b2) * g * g
+                new = master0 - lr * (m / (torch.sqrt(v) + cfg.eps)
+                                      + cfg.weight_decay * master0)
+                opt_state["master"][leaf].copy_(new)
+                params[i].copy_(new)
+            return out
+
+        St.adamw_update = faulty
+        return self
+
+    def __exit__(self, *exc):
+        self.St.adamw_update = self.real
+
+
+def lm_train_gate_card_vs_cpu(cut) -> str:
+    """Gate 1: one fp32 train step on the card and on the CPU from the same
+    state (after two warm steps on the card on the batch's tokens,
+    shuffled; see ``LM_TRAIN_CARD_CPU_REL``) and batch: loss, grad norm, lr
+    and every leaf of the updated params, master, m and v within
+    ``LM_TRAIN_CARD_CPU_REL`` of the CPU's; the card's master also within
+    ``LM_TRAIN_UPDATE_REL`` of the update recomputed in float64 from its
+    own m and v, its params the master's cast. A planted update without
+    bias correction on one leaf must exceed both bands. Reported: each
+    side's state against the step replayed in float64 on the card."""
+    import torch
+
+    from repro_torch.configs import replace
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    B, S = LM_TRAIN_GATE_BATCH
+    opt = OptimizerConfig(**LM_TRAIN_GATE_OPT)
+    step = make_train_step(cut, opt)
+    gen = torch.Generator().manual_seed(3)
+    batch = _train_batch(cut, B, S, gen, "cpu")
+    toks = torch.cat([batch["tokens"], batch["labels"][:, -1:]], 1)
+    warm = init_train_state(cut, 0, device="cuda")
+    for _ in range(2):
+        w = toks.flatten()[torch.randperm(toks.numel(), generator=gen)]
+        w = w.view_as(toks).to("cuda")
+        step(warm, {"tokens": w[:, :S], "labels": w[:, 1:]})
+    at = int(warm["opt"]["step"])
+    cpu = _state_on(cut, warm, "cpu")
+    card, faulty = _state_on(cut, warm, "cuda"), _state_on(cut, warm, "cuda")
+    wide_cfg = replace(cut, dtype="float64")
+    wide = _state_on(wide_cfg, warm, "cuda")
+    del warm
+    master_before = {n: t.clone() for n, t in card["opt"]["master"].items()}
+    t0 = time.perf_counter()
+    _, m_cpu = step(cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    on_card = {k: v.to("cuda") for k, v in batch.items()}
+    _, m_card = step(card, on_card)
+    torch.cuda.synchronize()
+    with _NoBiasCorrection():
+        _, m_faulty = step(faulty, on_card)
+    _, m_wide = make_train_step(wide_cfg, opt)(wide, on_card)
+    band, ubound = LM_TRAIN_CARD_CPU_REL, LM_TRAIN_UPDATE_REL
+    for key in ("loss", "grad_norm", "lr"):
+        a, b = float(m_card[key]), float(m_cpu[key])
+        if not abs(a - b) <= band * abs(b):
+            raise AssertionError(f"{cut.name}: card {key} {a!r} vs CPU "
+                                 f"{b!r} > {band} relative")
+    err, leaf = _state_gap(card, cpu)
+    if not err <= band:
+        raise AssertionError(f"{cut.name}: card state {err:.3e} from the "
+                             f"CPU port's at {leaf} > {band}")
+    caught, fleaf = _state_gap(faulty, cpu)
+    if not caught > band:
+        raise AssertionError(f"{cut.name}: the band {band} misses an update "
+                             f"without bias correction ({caught:.3e})")
+    lr = float(m_card["lr"])
+    uerr, uleaf = _update_gap(card, master_before, lr, at, opt)
+    if not uerr <= ubound:
+        raise AssertionError(f"{cut.name}: card master {uerr:.3e} from its "
+                             f"update recomputed in float64 at {uleaf} > "
+                             f"{ubound}")
+    ucaught, _ = _update_gap(faulty, master_before,
+                             float(m_faulty["lr"]), at, opt)
+    if not ucaught > ubound:
+        raise AssertionError(f"{cut.name}: the band {ubound} misses an update"
+                             f" without bias correction ({ucaught:.3e})")
+    e_card, _ = _state_gap(card, wide)
+    e_cpu, _ = _state_gap(cpu, wide)
+    return (f"loss {float(m_card['loss']):.6f} (CPU "
+            f"{float(m_cpu['loss']):.6f}, float64 on the card "
+            f"{float(m_wide['loss']):.6f}), grad norm "
+            f"{float(m_card['grad_norm']):.6f}; params, master, m, v: worst "
+            f"{leaf} {err:.3e} = {err / band:.3f} of the band (against the "
+            f"float64 replay: card {e_card / band:.3f}, CPU "
+            f"{e_cpu / band:.3f} of it; planted update without bias "
+            f"correction: {caught / band:.0f}x at {fleaf}); master against "
+            f"its float64 update: worst {uleaf} {uerr:.3e} = "
+            f"{uerr / ubound:.3f} of {ubound} (planted: "
+            f"{ucaught / ubound:.0f}x); CPU step {t_cpu:.1f} s")
+
+
+def lm_train_gate_equivalences(cut) -> str:
+    """Gate 2 on the card: ``microbatches=4`` = 1 within the reference's
+    1e-4, ``remat`` on = off bit for bit, and crash-resume (4 steps with a
+    checkpoint at 2 and a resume) = 4 straight steps bit for bit, under
+    ``torch.use_deterministic_algorithms(True)``; a resume that leaves m and
+    v at zero must differ."""
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch.data.pipeline import token_batches
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.trainer import TrainConfig, train
+
+    opt = OptimizerConfig(**LM_TRAIN_GATE_OPT)
+    gen = torch.Generator().manual_seed(4)
+    parts = []
+    # microbatches: from the state after two steps (as gate 1)
+    dev = "cuda"
+    base = init_train_state(cut, 0, device=dev)
+    step = make_train_step(cut, opt)
+    for _ in range(2):
+        step(base, _train_batch(cut, 8, 40, gen, dev))
+    batch = _train_batch(cut, 8, 40, gen, dev)
+    one, four = _state_on(cut, base, dev), _state_on(cut, base, dev)
+    _, m1 = step(one, batch)
+    _, m4 = make_train_step(cut, opt, microbatches=4)(four, batch)
+    dl = abs(float(m1["loss"]) - float(m4["loss"]))
+    dp = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        one["params"].parameters(), four["params"].parameters()))
+    if not (dl < LM_TRAIN_MICROBATCH_BOUND and dp < LM_TRAIN_MICROBATCH_BOUND):
+        raise AssertionError(f"{cut.name}: microbatches=4 differs from one "
+                             f"batch by {dl:.3e} (loss), {dp:.3e} (params)")
+    parts.append(f"microbatches 4 = 1: loss {dl:.3e}, params {dp:.3e} "
+                 f"(bound {LM_TRAIN_MICROBATCH_BOUND})")
+    del one, four
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, b = _state_on(cut, base, dev), _state_on(cut, base, dev)
+        make_train_step(cut, opt, remat=True)(a, batch)
+        make_train_step(cut, opt, remat=False)(b, batch)
+        gap, leaf = _state_gap(a, b)
+        if gap != 0.0:
+            raise AssertionError(f"{cut.name}: remat on differs from off by "
+                                 f"{gap:.3e} at {leaf}")
+        parts.append("remat on = off bit for bit")
+        del a, b, base
+
+        d = ROOT / "build" / "lm_train_ckpt"
+        shutil.rmtree(d, ignore_errors=True)
+
+        def batches(skip=0):
+            it = token_batches(cut.vocab_size, 2, 40, steps=4, seed=5,
+                               device=dev)
+            for _ in range(skip):
+                next(it)
+            return it
+
+        t0 = time.perf_counter()
+        straight, _ = train(cut, TrainConfig(steps=4, log_every=100), opt,
+                            batches(), device=dev)
+        train(cut, TrainConfig(steps=2, ckpt_every=2, ckpt_dir=str(d),
+                               log_every=100), opt, batches(), device=dev)
+        resumed, _ = train(cut, TrainConfig(steps=4, ckpt_every=100,
+                                            ckpt_dir=str(d), resume="auto",
+                                            log_every=100), opt, batches(2),
+                           device=dev)
+        gap, leaf = _state_gap(resumed, straight)
+        if gap != 0.0:
+            raise AssertionError(f"{cut.name}: crash and resume differs from "
+                                 f"4 straight steps by {gap:.3e} at {leaf}")
+        del resumed
+        # the planted fault: a resume that leaves m and v at zero
+        shutil.rmtree(d / "step_4")
+        real = C.CheckpointManager.restore
+
+        def zero_moments(self, *a, **kw):
+            state, manifest = real(self, *a, **kw)
+            for k in ("m", "v"):
+                for t in state["opt"][k].values():
+                    t.zero_()
+            return state, manifest
+
+        C.CheckpointManager.restore = zero_moments
+        try:
+            bad, _ = train(cut, TrainConfig(steps=4, ckpt_every=100,
+                                            ckpt_dir=str(d), resume="auto",
+                                            log_every=100), opt, batches(2),
+                           device=dev)
+        finally:
+            C.CheckpointManager.restore = real
+        caught, fleaf = _state_gap(bad, straight)
+        if not caught > 0.0:
+            raise AssertionError(f"{cut.name}: crash-resume misses a resume "
+                                 f"with m and v at zero")
+        parts.append(f"crash at 2 and resume = 4 straight steps bit for bit "
+                     f"(planted zero moments: {caught:.3e} at {fleaf}; "
+                     f"{time.perf_counter() - t0:.1f} s with the "
+                     f"checkpoints)")
+        del bad, straight
+        shutil.rmtree(d, ignore_errors=True)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return "; ".join(parts)
+
+
+def lm_train_flops(cfg, B, S) -> dict:
+    """Model FLOPs of one remat train step: 6·N·T for the matmuls of every
+    parameter (the tied embedding counted once, as the head: its lookup is
+    no product), the remat's second forward of the layers, 2·N_layers·T,
+    and attention's QKᵀ and PV over the full S × S scores (the port
+    computes them unmasked) in the forward (4·B·S²·H·hd a layer), the
+    backward (twice that) and the recomputed forward."""
+    d, V, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    h, hk, hd, ff = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    per_layer = d * (h + 2 * hk) * hd + h * hd * d + 3 * d * ff
+    per_layer += 2 * d + (2 * hd if cfg.qk_norm else 0)
+    N = V * d + L * per_layer + d
+    T = B * S
+    attn = 16.0 * B * S * S * h * hd * L
+    return {"params": N, "six_nt": 6.0 * N * T,
+            "remat": 2.0 * L * per_layer * T, "attention": attn,
+            "total": 6.0 * N * T + 2.0 * L * per_layer * T + attn}
+
+
+class _CurationTap:
+    """Records each window ``Curator.select`` takes (its tokens, the
+    selection, and its ms: the host embedding and the whole select)."""
+
+    def __init__(self):
+        from repro_torch.data import pipeline as P
+
+        self.P, self.windows = P, []
+
+    def __enter__(self):
+        import torch
+
+        P, windows = self.P, self.windows
+        self.real_select = P.Curator.select
+        self.real_embed = P.hashed_embedding
+        real_select, real_embed = self.real_select, self.real_embed
+        spent = []
+
+        def embed(*a, **kw):
+            t0 = time.perf_counter()
+            out = real_embed(*a, **kw)
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        def select(cur, tokens):
+            spent.clear()
+            t0 = time.perf_counter()
+            idx = real_select(cur, tokens)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            windows.append({"tokens": tokens.copy(), "indices": idx,
+                            "embed_ms": sum(spent) * 1e3,
+                            "select_ms": (total - sum(spent)) * 1e3})
+            return idx
+
+        P.Curator.select, P.hashed_embedding = select, embed
+        return self
+
+    def __exit__(self, *exc):
+        self.P.Curator.select = self.real_select
+        self.P.hashed_embedding = self.real_embed
+
+
+def _same_selection_or_tie(window, ccfg, vocab) -> str:
+    """A curation window's selection on the card against the ``torch``
+    backend's on the CPU, round by round: both sides' caches fold the
+    card's picks, and at every round the card's pick must lead the card's
+    gains, and the CPU's gain of it may trail the CPU's best by at most
+    twice the largest gap between the two sides' gains over the candidates
+    (a flip inside both roundings: g_cpu[b] − g_cpu[a] ≤ |g_cpu[b] −
+    g_card[b]| + |g_card[a] − g_cpu[a]|). So every round past a tie is
+    held too. Reported: whether the CPU's own greedy picks the same, the
+    rounds whose CPU best differs from the card's pick, and the largest
+    gap between the sides' gains relative to the round's best gain."""
+    import numpy as np
+
+    from repro_torch.core import EvalConfig, ExemplarClustering
+    from repro_torch.data.pipeline import Curator, hashed_embedding
+
+    card = window["indices"]
+    cpu = Curator(ccfg, vocab, EvalConfig(backend="torch"),
+                  device="cpu").select(window["tokens"])
+    emb = hashed_embedding(window["tokens"], ccfg.embed_dim, vocab)
+    fc = ExemplarClustering(emb, EvalConfig(backend="torch"), device="cpu")
+    fk = ExemplarClustering(emb, EvalConfig(backend="cuda"), device="cuda")
+    cc, ck = fc.init_cache(), fk.init_cache()
+    ties, worst = [], 0.0
+    for t, j in enumerate(card):
+        free = np.setdiff1d(np.arange(len(emb)), card[:t])
+        gc = fc.gains_from_cache(cc, free).numpy()
+        gk = fk.gains_from_cache(ck, free).cpu().numpy()
+        a = int(np.searchsorted(free, j))
+        err = float(np.abs(gk - gc).max())
+        gap = float(gc.max() - gc[a])
+        if not (gk[a] == gk.max() and gap <= 2 * err):
+            raise AssertionError(
+                f"round {t}: the card picks {j} (card gain {gk[a]!r}, CPU "
+                f"{gc[a]!r}), the CPU's best is {free[int(np.argmax(gc))]} "
+                f"(CPU gain {gc.max()!r}): not a tie within the gains' gap "
+                f"{err:.3e}")
+        if gap > 0:
+            ties.append(t)
+        worst = max(worst, err / float(gc.max() or 1.0))
+        cc, ck = fc.fold_winner(cc, int(j)), fk.fold_winner(ck, int(j))
+    same = "identical" if np.array_equal(card, cpu) else (
+        f"parts at pick {int(np.argmax(card != cpu))}")
+    return (f"CPU's greedy {same}; card's picks within a tie at every round"
+            f" (ties at rounds {ties}; card and CPU gains at most "
+            f"{worst:.3e} of the best apart)")
+
+
+def lm_gain_eval_row(windows, peaks) -> dict:
+    """``gain_eval`` at the curation's shape (n = m = 256, d = 64): against
+    its plain version on a window's embedding, at the empty set's cache
+    and after half the selection, then its device time (profiler) and
+    event time beside the plain version, ``V @ C.T`` and the bound."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import EvalConfig, ExemplarClustering
+    from repro_torch.core.precision import FP32
+    from repro_torch.data.pipeline import hashed_embedding
+    from repro_torch.kernels import marginal_gain as mg
+
+    w = windows[0]
+    ccfg = LM_TRAIN_FULL
+    vocab = get_config(ccfg["arch"]).vocab_size
+    emb = hashed_embedding(w["tokens"], 64, vocab)
+    f = ExemplarClustering(emb, EvalConfig(backend="cuda"),
+                           device="cuda")
+    V = f.V
+    n, dim = V.shape
+    caches = [f.init_cache()]
+    for j in w["indices"][:ccfg["select"] // 2]:
+        caches.append(f.fold_winner(caches[-1], int(j)))
+    kw = dict(n_total=n, policy=FP32)
+    gram = 2 * float((V * V).sum(1).max())
+    errs = []
+    for vec, _ in (caches[0], caches[-1]):
+        got = mg.gain_eval(V, V, vec.contiguous(), **kw)
+        ref = mg.gain_eval_plain(V, V, vec.contiguous(), **kw)
+        torch.cuda.synchronize()
+        top = float(ref.abs().max())
+        band = LM_GAIN_REL * top
+        err = float((got - ref).abs().max())
+        caught = float((got * 0.99 - ref).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= band
+                and caught > band):
+            raise AssertionError(f"gain_eval at the curation's shape: max "
+                                 f"abs error {err:.3e} (band {band:.3e}, "
+                                 f"planted 1 %: {caught:.3e}; Gram term "
+                                 f"{gram:.3e})")
+        errs.append(err / band)
+    vec = caches[-1][0].contiguous()
+    flops = 2.0 * n * n * dim
+    nbytes = 4 * (2 * n * dim + n + n)
+    t_ops = flops / peaks["fp32"] * 1e3
+    t_bytes = nbytes / peaks["bw"] * 1e3
+    return {"n": n, "m": n, "d": dim, "err_of_band": max(errs),
+            "eps_gram_of_top": 2 ** -23 * gram / top,
+            "ms": device_ms(lambda: mg.gain_eval(V, V, vec, **kw), 50),
+            "event_ms": cuda_ms(lambda: mg.gain_eval(V, V, vec, **kw), 50),
+            "plain_ms": cuda_ms(lambda: mg.gain_eval_plain(V, V, vec, **kw),
+                                50),
+            "library_ms": device_ms(lambda: V @ V.T, 50),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def lm_train_full(peaks) -> dict:
+    """Gate 3 and the report: ``train()`` over curated ``token_batches``
+    on the ``cuda`` backend, qwen3-0.6b uncut in bf16 (``LM_TRAIN_FULL``).
+    Every step's loss finite, the last below the first; each window's
+    selection on the card the ``torch`` backend's best on the CPU at every
+    round, or a tie (``_same_selection_or_tie``);
+    ``gain_eval`` launched k times per window (counted over ``train()``
+    alone). Reported: ms per step (median after two warm-up steps),
+    tokens/s of the steps alone and of the whole loop after the first
+    window (its curations included), peak memory, MFU, the busy share of
+    one profiled step, the curation's ms per window and ``gain_eval``'s
+    row at its shape."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import EvalConfig
+    from repro_torch.data.pipeline import CurationConfig, token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import count_params
+    from repro_torch.train import step as St
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig, train
+
+    c = LM_TRAIN_FULL
+    cfg = get_config(c["arch"])
+    ccfg = CurationConfig(window=c["window"], select=c["select"])
+    opt = OptimizerConfig(lr=c["lr"], warmup_steps=c["warmup"],
+                          total_steps=c["steps"])
+    times, ends = [], []
+    real_make = St.make_train_step
+
+    def timed_make(*a, **kw):
+        fn = real_make(*a, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            times.append(ends[-1] - t0)
+            return out
+
+        return timed
+
+    losses = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    St.make_train_step = timed_make
+    t0 = time.perf_counter()
+    try:
+        with _CurationTap() as tap:
+            batches = token_batches(
+                cfg.vocab_size, c["B"], c["S"], steps=c["steps"],
+                curation=ccfg, eval_cfg=EvalConfig(backend="cuda"),
+                device="cuda")
+            ops.LAUNCHES.clear()
+            state, _ = train(
+                cfg, TrainConfig(steps=c["steps"], log_every=1), opt,
+                batches, on_metrics=lambda s, m: losses.append(m["loss"]),
+                device="cuda")
+            launches = dict(ops.LAUNCHES)
+    finally:
+        St.make_train_step = real_make
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    windows = tap.windows
+    if len(losses) != c["steps"] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{cfg.name}: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the last loss {losses[-1]} is not "
+                             f"below the first {losses[0]}")
+    n_windows = c["steps"] * c["B"] // c["select"]
+    if len(windows) != n_windows:
+        raise AssertionError(f"{len(windows)} curation windows, expected "
+                             f"{n_windows}")
+    want = c["select"] * len(windows)
+    if launches.get("gain_eval", 0) != want:
+        raise AssertionError(f"gain_eval launched {launches.get('gain_eval', 0)}"
+                             f" times over training, expected {want} "
+                             f"({c['select']} rounds x {len(windows)} "
+                             f"windows)")
+    selections = [_same_selection_or_tie(w, ccfg, cfg.vocab_size)
+                  for w in windows]
+    # one profiled step, and the kernel row at the curation's shape
+    step = St.make_train_step(cfg, opt)
+    gen = torch.Generator().manual_seed(0)
+    batch = _train_batch(cfg, c["B"], c["S"], gen, "cuda")
+    step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t1) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:5]
+    n_params = count_params(state["params"])
+    del state
+    torch.cuda.empty_cache()
+    steady = statistics.median(times[2:])
+    flops = lm_train_flops(cfg, c["B"], c["S"])
+    if flops["params"] != n_params:
+        raise AssertionError(f"FLOP count's N {flops['params']} != the "
+                             f"model's {n_params}")
+    tokens = c["B"] * c["S"]
+    # the whole loop from the end of the first window's last step: every
+    # later window's curation, its steps and the trainer's own work
+    per_window = c["select"] // c["B"]
+    loop_s = ends[-1] - ends[per_window - 1]
+    return {
+        "params": n_params, "batch": c["B"], "seq": c["S"],
+        "steps": c["steps"], "windows": len(windows),
+        "losses_first_last": [losses[0], losses[-1]],
+        "ms_per_step": steady * 1e3,
+        "ms_per_step_q": [t * 1e3 for t in
+                          statistics.quantiles(times[2:], n=4)],
+        "tokens_per_s": tokens / steady,
+        "tokens_per_s_with_curation": (c["steps"] - per_window) * tokens
+        / loop_s,
+        "loop_s_after_first_window": loop_s,
+        "max_memory_allocated": peak, "memory_allocated_before": before,
+        "flops_per_step": flops["total"], "flops_split": {
+            k: flops[k] for k in ("six_nt", "remat", "attention")},
+        "mfu": flops["total"] / steady / peaks["half"],
+        "mfu_peak": peaks["half"],
+        "profiled_step_wall_ms": prof_wall,
+        "profiled_step_device_busy_ms": busy,
+        "profiled_step_busy_share": busy / prof_wall,
+        "profiled_step_device_kernels": sum(e.count for e in dev_events),
+        "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3,
+                            e.count] for e in top],
+        "curation_embed_ms": [w["embed_ms"] for w in windows],
+        "curation_select_ms": [w["select_ms"] for w in windows],
+        "train_wall_s": wall, "gain_eval_launches": launches["gain_eval"],
+        "selections": selections,
+        "gain_eval_curation_shape": lm_gain_eval_row(windows, peaks),
+    }
+
+
+def phase_lm_training(peaks) -> dict:
+    """Phase 3g: gates 1–3 and the report."""
+    import torch
+
+    from repro_torch.configs import get_config, replace
+
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False    # the fp32 gates
+    try:
+        for arch in LM_TRAIN_GATE1:
+            t0 = time.perf_counter()
+            cut = replace(get_config(arch), dtype="float32", **LM_CUT[arch])
+            log(f"  {arch}: gate 1, card = CPU port ({cut.num_layers} "
+                f"layers, fp32, B x S = {LM_TRAIN_GATE_BATCH}): "
+                f"{lm_train_gate_card_vs_cpu(cut)} "
+                f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        arch = LM_TRAIN_FULL["arch"]
+        cut = replace(get_config(arch), dtype="float32", **LM_CUT[arch])
+        log(f"  {arch}: gate 2, equivalences on the card ({cut.num_layers} "
+            f"layers, fp32): {lm_train_gate_equivalences(cut)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    t0 = time.perf_counter()
+    r = lm_train_full(peaks)
+    c = LM_TRAIN_FULL
+    log(f"  {arch}: gate 3, bf16 full width ({r['params']} parameters), "
+        f"{c['steps']} steps of {c['B']} x {c['S']} over {r['windows']} "
+        f"curated windows of {c['window']} (k = {c['select']}): losses "
+        f"finite, {r['losses_first_last'][0]:.4f} -> "
+        f"{r['losses_first_last'][1]:.4f}; selections against the CPU's: "
+        f"{'; '.join(r['selections'])}; gain_eval launched "
+        f"{r['gain_eval_launches']} times "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"    report: {json.dumps(r)}")
+    return r
+
+
 def previous_order_gains(caches, dvec, *, seed, n_total=None, fold="min",
                          score_affine=None):
     """The sieve gains of ``cat([seed, caches])`` in the order of fp32
@@ -2669,6 +3442,15 @@ def main() -> int:
     log(f"    launches of the port's kernels: "
         f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none); phase "
         f"{time.perf_counter() - t0:.1f} s")
+    peaks = peaks_for(torch.cuda.get_device_name(0))
+    log(f"[3g] LM training with curation ({LM_TRAIN_FULL['arch']} at full "
+        f"width, bf16; gates 1-2 at LM_CUT, fp32)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops.LAUNCHES.clear()
+    train_report = phase_lm_training(peaks)
+    log(f"    launches over the phase: {json.dumps(dict(ops.LAUNCHES))}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
     # each path's own launches: the main path's four kernels, the serving
     # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}
@@ -2678,9 +3460,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"main, serving and streaming paths launched no "
                              f"{missing}")
+    if not train_report["gain_eval_launches"]:
+        raise AssertionError("the LM training path launched no gain_eval")
 
     log("[4] timing at the main path's shapes (fp32, CUDA events)")
-    peaks = peaks_for(torch.cuda.get_device_name(0))
     rows = phase_timing(peaks, V64, Vpaper, serve_shapes)
     del V64, Vpaper
     kernels = []
@@ -2707,6 +3490,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": r["library_ms"],
             # launches in the contract phase (3e)
             "audit_launches": audit_launches.get(name, 0),
+            # launches over phase 3g's train() (curated qwen3-0.6b)
+            **({"train_launches": train_report["gain_eval_launches"]}
+               if name == "gain_eval" else {}),
             # per rank of the mesh phase (3d), for the kernels it runs
             **({"mesh_launches": [mesh_launches[q].get(name, 0)
                                   for q in sorted(mesh_launches)]}

@@ -128,9 +128,12 @@ def sieve_state_from_arrays(fields, device=None) -> SieveState:
 
 def tensor_from_array(a, device=None, dtype=None) -> torch.Tensor:
     """A numpy array (a bfloat16 one too: ``ml_dtypes``' has no torch
-    counterpart in numpy, so its bits go across as int16) as a tensor."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    counterpart in numpy, so its bits go across as int16), or a tensor,
+    as a tensor of its own (never a view of ``a``)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device=resolve_device(device), copy=True,
+                             dtype=a.dtype if dtype is None else dtype)
+    if np.asarray(a).dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(a).view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
@@ -143,8 +146,9 @@ def lm_params_from_arrays(cfg: ModelConfig, tree, device=None) -> DecoderLM:
     reference's ``init_model`` parameter tree as numpy arrays: ``embed``,
     ``final_norm``, ``head`` (untied), ``dec_pos`` (encdec) and
     ``groups``, whose leaves are stacked ``(count, …)`` over a group's
-    layers. Each leaf takes its spec's dtype (the config's, or fp32 for
-    ``a_log``); shapes are checked against the port's own."""
+    layers (numpy arrays or tensors). Each leaf takes its spec's dtype
+    (the config's, or fp32 for ``a_log``); shapes are checked against the
+    port's own."""
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
 
@@ -158,6 +162,100 @@ def lm_params_from_arrays(cfg: ModelConfig, tree, device=None) -> DecoderLM:
     tree = {**tree, "groups": {k: unstack(g)
                                for k, g in tree["groups"].items()}}
     return DecoderLM(cfg, M.spec_map(leaf, M.param_specs(cfg), tree))
+
+
+def _ref_path(name: str) -> tuple:
+    """A port parameter name (``groups.g0_attn.3.attn.wq``) as the
+    reference's path (``("groups", "g0_attn", "attn", "wq")``) and its
+    layer in the group's stack (3; None outside the groups)."""
+    parts = tuple(name.split("."))
+    if parts[0] == "groups":
+        return parts[:2] + parts[3:], int(parts[2])
+    return parts, None
+
+
+def lm_ref_leaves(named) -> dict:
+    """``(name, tensor)`` pairs of the port (``named_parameters()`` or an
+    optimizer dict's items) as ``{reference path: [tensor per layer]}``,
+    a group's layers in order (one tensor outside the groups)."""
+    out: dict = {}
+    for name, t in named:
+        out.setdefault(_ref_path(name)[0], []).append(t)
+    return out
+
+
+def put_path(tree: dict, path: tuple, leaf) -> None:
+    """``tree[path[0]][path[1]]… = leaf``, making the dicts on the way."""
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def _get(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def lm_train_state_tree(state: dict) -> dict:
+    """The port's train state (``train.step.init_train_state``) as the
+    reference's tree ``{"params", "opt": {"master", "m", "v", "step"}}``
+    of CPU tensors in their own dtypes, a group's layers stacked
+    ``(count, …)`` (on their device, then copied once). Every leaf is a
+    copy, never the live tensor."""
+    def stacked(named):
+        tree: dict = {}
+        for path, ts in lm_ref_leaves(named).items():
+            leaf = torch.stack(ts) if path[0] == "groups" else ts[0]
+            put_path(tree, path, leaf.detach().to("cpu", copy=True))
+        return tree
+
+    opt = state["opt"]
+    return {"params": stacked(state["params"].named_parameters()),
+            "opt": {"master": stacked(opt["master"].items()),
+                    "m": stacked(opt["m"].items()),
+                    "v": stacked(opt["v"].items()),
+                    "step": opt["step"].detach().to("cpu", copy=True)}}
+
+
+def lm_train_state_to_arrays(state: dict) -> dict:
+    """:func:`lm_train_state_tree` as numpy arrays, bfloat16 leaves widened
+    (exactly) to float32: numpy has no bfloat16 without ``ml_dtypes``."""
+    return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16
+                               else t).numpy(), lm_train_state_tree(state))
+
+
+def lm_train_state_from_arrays(cfg: ModelConfig, state_tree: dict,
+                               device=None) -> dict:
+    """The port's train state from the reference's ``{"params", "opt":
+    {"master", "m", "v", "step"}}`` (numpy arrays or tensors, groups
+    stacked): the model by :func:`lm_params_from_arrays`, every leaf
+    taking gradients; the fp32 master and moments one per parameter, in
+    ``named_parameters()`` order; ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+    model = lm_params_from_arrays(cfg, state_tree["params"], dev)
+    model.requires_grad_(True)
+    opt = state_tree["opt"]
+
+    def per_param(tree):
+        out = {}
+        for name, p in model.named_parameters():
+            path, layer = _ref_path(name)
+            a = _get(tree, path)
+            a = a if layer is None else a[layer]
+            t = tensor_from_array(a, dev, torch.float32)
+            if t.shape != p.shape:
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(t.shape)}, the parameter's "
+                                 f"{tuple(p.shape)}")
+            out[name] = t
+        return out
+
+    return {"params": model,
+            "opt": {"master": per_param(opt["master"]),
+                    "m": per_param(opt["m"]), "v": per_param(opt["v"]),
+                    "step": tensor_from_array(opt["step"], dev,
+                                              torch.int32).reshape(())}}
 
 
 def _cache_dims(tree) -> tuple:

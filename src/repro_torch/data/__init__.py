@@ -1,1 +1,1 @@
-"""Synthetic workloads (numpy only)."""
+"""Synthetic workloads (numpy only) and the LM data pipeline."""

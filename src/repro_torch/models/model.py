@@ -11,7 +11,10 @@ per-layer parameter trees (the reference stacks them for ``lax.scan``);
 whisper's encoder is group ``g0_enc_attn``.
 
 Modes:
-  * ``train``   — full-sequence forward, no caches.
+  * ``train``   — full-sequence forward, no caches; with ``remat=True``
+    each layer runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` per layer): its activations are recomputed in the
+    backward pass instead of kept.
   * ``prefill`` — full-sequence forward; allocates the decode cache once
     (:func:`zero_caches`) and fills it.
   * ``decode``  — one token at a host position against the caches, which
@@ -32,6 +35,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.core.multiset import resolve_device
@@ -477,21 +481,32 @@ def _sinusoidal(S_len: int, d: int, device) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 
 
-def _encode(model: DecoderLM, cfg: ModelConfig, frontend):
+def _layer_fn(remat: bool):
+    """``apply_layer``, or ``apply_layer`` under a non-reentrant
+    checkpoint (``remat``: the layer's activations are recomputed in the
+    backward pass)."""
+    if not remat:
+        return apply_layer
+    return functools.partial(torch.utils.checkpoint.checkpoint, apply_layer,
+                             use_reentrant=False)
+
+
+def _encode(model: DecoderLM, cfg: ModelConfig, frontend,
+            layer_fn=apply_layer):
     """Whisper's encoder over (B, frontend_len, d) frames: the sinusoid
     added in the frames' dtype, then the layers in the model's."""
     x = frontend + _sinusoidal(frontend.shape[1], cfg.d_model,
                                frontend.device).to(frontend.dtype)[None]
     x = x.to(model.embed["w"].dtype)
     for layer in model.groups["g0_enc_attn"]:
-        x, _ = apply_layer(layer, cfg, "enc_attn", x, mode="train",
-                           pos_offset=0, cache=None, cache_len=None)
+        x, _ = layer_fn(layer, cfg, "enc_attn", x, mode="train",
+                        pos_offset=0, cache=None, cache_len=None)
     return x
 
 
 def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
             caches: Optional[dict] = None, pos_offset: int = 0,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, remat: bool = False):
     """Returns (logits, caches | None).
 
     ``batch``: ``tokens`` (B, S) int and ``frontend`` (B, frontend_len,
@@ -501,9 +516,11 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
     ``caches["enc_out"]``). ``prefill`` fills ``caches`` if given, else
     allocates them (``cache_len``: the buffer length, the whole input's
     if None); ``decode`` updates ``caches`` in place and returns the same
-    tree.
+    tree. ``remat`` checkpoints each layer in train mode (the other modes
+    ignore it); the values are the same either way.
     """
     cfg = model.cfg
+    layer_fn = _layer_fn(remat and mode == "train")
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     if mode == "decode" and caches is None:
@@ -516,7 +533,7 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
             raise ValueError(f"{cfg.name}: the encoder needs "
                              f"batch['frontend'] outside decode")
         else:
-            cross_x = _encode(model, cfg, frontend)
+            cross_x = _encode(model, cfg, frontend, layer_fn)
 
     x = _embed(model, cfg, tokens)
     if cfg.family == "encdec":
@@ -545,9 +562,9 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
         for i, layer in enumerate(group):
             lc = (tree_map(lambda t, i=i: t[i], gcache)
                   if gcache is not None else None)
-            x, _ = apply_layer(layer, cfg, kind, x, mode=mode,
-                               pos_offset=pos_offset, cache=lc,
-                               cache_len=cache_len, cross_x=cross_x)
+            x, _ = layer_fn(layer, cfg, kind, x, mode=mode,
+                            pos_offset=pos_offset, cache=lc,
+                            cache_len=cache_len, cross_x=cross_x)
 
     norm = L.layer_norm if cfg.family == "encdec" else L.rms_norm
     x = norm(model.final_norm, x, cfg.norm_eps)

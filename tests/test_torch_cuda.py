@@ -580,3 +580,81 @@ def test_contract_audit_quick_on_the_card(dev):
     assert {"gain_eval", "gain_update_eval", "gain_eval_batched",
             "gain_update_eval_batched", "sieve_gain_eval",
             "sieve_gain_eval_batched"} <= set(calls)
+
+
+@pytest.mark.cuda
+def test_curation_on_the_card_equals_the_torch_backend(dev):
+    """One curation window (n = 256, d = 64, k = 64) through
+    ``Curator(EvalConfig(backend="cuda"))`` on the card, one ``gain_eval``
+    launch per round, held round by round against the ``torch`` backend's
+    gains on the CPU: both caches fold the card's picks, and at every
+    round the card's pick leads the card's gains and trails the CPU's best
+    by at most twice the largest gap between the two sides' gains (a tie
+    the two roundings decide), as in chip_smoke.py's phase 3g."""
+    from repro_torch.core import EvalConfig, ExemplarClustering
+    from repro_torch.data.pipeline import (CurationConfig, Curator,
+                                           hashed_embedding)
+    from repro_torch.data.synthetic import TopicTokenStream
+    from repro_torch.kernels import ops
+
+    pool, _ = TopicTokenStream(50_304, seed=3).sample(256, 128, 4.0)
+    tokens = pool[:, :128]
+    ccfg = CurationConfig(window=256, select=64)
+    before = ops.LAUNCHES["gain_eval"]
+    got = Curator(ccfg, 50_304, EvalConfig(backend="cuda"),
+                  device=dev).select(tokens)
+    assert ops.LAUNCHES["gain_eval"] - before == 64
+    emb = hashed_embedding(tokens, 64, 50_304)
+    fc = ExemplarClustering(emb, EvalConfig(backend="torch"), device="cpu")
+    fk = ExemplarClustering(emb, EvalConfig(backend="cuda"), device=dev)
+    cc, ck = fc.init_cache(), fk.init_cache()
+    for t, j in enumerate(got):
+        free = np.setdiff1d(np.arange(256), got[:t])
+        gc = fc.gains_from_cache(cc, free).numpy()
+        gk = fk.gains_from_cache(ck, free).cpu().numpy()
+        a = np.searchsorted(free, j)
+        assert gk[a] == gk.max(), t
+        assert gc.max() - gc[a] <= 2 * np.abs(gk - gc).max(), (
+            t, gc.max() - gc[a])
+        cc, ck = fc.fold_winner(cc, int(j)), fk.fold_winner(ck, int(j))
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(dev):
+    """One train step of reduced qwen3 (fp32, TF32 off) on the card and on
+    the CPU from the same state (after two CPU steps: AdamW's first step
+    divides each gradient by its own magnitude, so a near-zero gradient's
+    last bits would move its weight by the full lr): loss and every
+    updated leaf within 1e-4 of its max |value| (cuBLAS against the CPU's
+    BLAS)."""
+    import copy
+
+    from repro_torch import configs
+    from repro_torch.convert import lm_train_state_to_arrays
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.get_reduced_config("qwen3-0.6b")
+    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1,
+                                                total_steps=4))
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (3, 4, 33), generator=g,
+                         dtype=torch.int32)
+    cpu = init_train_state(cfg, 0, device="cpu")
+    for t in toks[:2]:
+        step(cpu, {"tokens": t[:, :32], "labels": t[:, 1:]})
+    card = copy.deepcopy(cpu)
+    card["params"].to(dev)
+    card["opt"] = {k: ({n: t.to(dev) for n, t in v.items()}
+                       if isinstance(v, dict) else v.to(dev))
+                   for k, v in card["opt"].items()}
+    batch = {"tokens": toks[2, :, :32], "labels": toks[2, :, 1:]}
+    _, m_cpu = step(cpu, batch)
+    _, m_card = step(card, {k: v.to(dev) for k, v in batch.items()})
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-4 * abs(
+        float(m_cpu["loss"]))
+    for (p, a), (_, b) in zip(tree_leaves(lm_train_state_to_arrays(card)),
+                              tree_leaves(lm_train_state_to_arrays(cpu))):
+        assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-30), p
