@@ -156,6 +156,31 @@ Phases (any failure exits non-zero before the result lines):
    the curation's ms per window (host embedding, selection) and
    ``gain_eval`` at the curation's shape (n = m = 256, d = 64) against its
    plain version, with its device time, ``V @ V.T``'s and its bound.
+   Between 3f and 3g, LM serving on a mesh (phase 3h): ``LM_MESH_SHAPE``
+   = (data 1, model 4) gloo ranks on ``cuda:0`` (``spawn_local``, a store
+   under ``build/lm_mesh``), each holding the whole model (seeded) and its
+   own block of the cache, through ``make_prefill_step`` /
+   ``make_serve_step`` with ``rules=MeshRules.for_mesh(DeviceMesh)``, bf16,
+   uncut (``LM_MESH``): ``gemma3-1b`` 4 × 1 024 + 64 greedy tokens with a
+   2 048 cache (its one kv head splits the buffers: the flash-decoding
+   combine every decode step) and ``granite-moe-3b-a800m`` 4 × 512 + 32 at
+   capacity 8.0 (expert parallelism over ``all_to_all_single`` in prefill,
+   the dense MoE and heads-split caches in decode); then one NCCL rank on a
+   (1, 1) mesh runs granite's prefill (expert parallelism over NCCL). Gates:
+   every rank's tokens, and each step's logits bit for bit, equal rank 0's;
+   rank 0 serves the same prompts on the single-device path fed the mesh's
+   tokens, and every step's last-position logits lie within
+   ``LM_MESH_REL`` of their max, the tokens equal but where the
+   single-device top-2 margin is within 2 x the step's gap (a tie); prefill
+   uses expert parallelism and decode does not, and granite's first MoE
+   layer on a seeded input at the prefill's shape is bit for bit the dense
+   MoE's on every rank; the NCCL prefill issues ``all_to_all_single``, its
+   layer is bit for bit the dense one's, and its logits are in the band of
+   the single-device prefill.
+   Reported: each rank's prefill and decode times, its cache bytes beside
+   the single-device cache's, the census of one decode step (collectives
+   and the largest operand; and of a prefill, for granite), beside the
+   card's line.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -2082,6 +2107,305 @@ def phase_lm_serving() -> dict:
     return out
 
 
+#: Phase 3h, LM serving on a mesh of ``LM_MESH_SHAPE`` (data, model) gloo
+#: ranks on the one card, bf16, each configuration uncut: (batch, prompt,
+#: greedy tokens, cache length, MoE capacity). gemma3's one kv head does not
+#: divide the model axis, so its caches split along the buffer (the 512-slot
+#: ring and the 2 048-slot global layers both divide by 4) and decode runs
+#: the flash-decoding combine; the 1 024-token prompt wraps the ring before
+#: decode starts. granite's 48 padded experts and its 512-token prompt
+#: divide by 4, so prefill runs expert parallelism over
+#: ``all_to_all_single``; decode (S = 1) takes the dense MoE, and its 8 kv
+#: heads split over the model axis. granite runs at capacity 8.0, which
+#: drops nothing: expert parallelism bins per source rank, the dense path
+#: per call, so only without drops do the two compute one function (as in
+#: the reference's own ``test_moe_ep_matches_dense``).
+LM_MESH = {"gemma3-1b": (4, 1024, 64, 2048, None),
+           "granite-moe-3b-a800m": (4, 512, 32, 544, 8.0)}
+LM_MESH_SHAPE = (1, 4)
+#: The mesh against the single-device path on the card, bf16: each step's
+#: last-position logits within 1/16 of their max |value| (the port's bf16
+#: serving band, ``tests/test_torch_lm_serve.py``'s ``REL_BF16``); tokens
+#: equal except where the single-device top-2 margin is within 2 x the
+#: step's largest logit gap.
+LM_MESH_REL = 1 / 16
+
+
+def _mesh_rules_on(world: int, data: int):
+    """``MeshRules`` on a (data, model) ``DeviceMesh`` over the world."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.distributed.sharding import MeshRules
+
+    grid = np.arange(world).reshape(data, world // data).tolist()
+    kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return MeshRules.for_mesh(DeviceMesh(kind, grid,
+                                         mesh_dim_names=("data", "model")))
+
+
+def _lm_mesh_setup(arch, B, S, capacity):
+    import torch
+
+    from repro_torch.configs import get_config, replace
+    from repro_torch.models.model import init_model
+
+    torch.cuda.set_device(0)
+    cfg = get_config(arch)
+    if capacity is not None:
+        cfg = replace(cfg, moe_capacity=capacity)
+    model = init_model(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    return cfg, model, prompts
+
+
+def _mesh_vs_one(mesh_rows, one_rows, tokens) -> dict:
+    """Per step: the largest logit gap against ``LM_MESH_REL`` of the
+    single-device logits' max, and the mesh's token against the single
+    device's argmax (a tie where the top-2 margin is within 2 x the gap).
+    The single-device path was fed the mesh's tokens, so every step after
+    a tie is still compared."""
+    import torch
+
+    worst, ties = 0.0, []
+    for j, (a, b) in enumerate(zip(mesh_rows, one_rows)):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        worst = max(worst, err / (LM_MESH_REL * scale))
+        if err > LM_MESH_REL * scale:
+            raise AssertionError(f"step {j}: logits {err:.4e} apart, band "
+                                 f"{LM_MESH_REL * scale:.4e}")
+        top2 = torch.topk(b, 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) <= 2 * err
+        same = tokens[:, j] == torch.argmax(b, dim=-1)
+        if not bool(torch.all(same | tie)):
+            raise AssertionError(f"step {j}: tokens {tokens[:, j].tolist()} "
+                                 f"!= single device "
+                                 f"{torch.argmax(b, -1).tolist()}")
+        ties += [(j, b_) for b_ in torch.nonzero(~same).flatten().tolist()]
+    return {"worst_of_band": worst, "ties": ties}
+
+
+def _ep_vs_dense(model, rules, B, S) -> float:
+    """The first MoE layer at the prefill's shape on a seeded input:
+    largest gap between expert parallelism and the dense path."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe_ep import moe_ep
+
+    cfg = model.cfg
+    p = next(iter(model.groups.values()))[0]["moe"]
+    w = model.embed["w"]
+    gen = torch.Generator(device=w.device)
+    gen.manual_seed(2)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=w.device) \
+        .to(w.dtype)
+    with torch.no_grad():
+        ep = moe_ep(p, cfg, x, cfg.act, rules)
+        return float((ep.float() - L.moe(p, cfg, x, cfg.act).float())
+                     .abs().max())
+
+
+def lm_mesh_rank(rank, world, data, arch, B, S, N, cache_len, capacity):
+    """One gloo rank of phase 3h on cuda:0: a warm-up (its prefill under
+    the census), then the timed prefill and N − 1 greedy decode steps on
+    the mesh with each step's logits kept; a census of one more decode
+    step; rank 0 then serves the same prompts on the single-device path,
+    fed the mesh's tokens, and compares step by step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis.census import take_census
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.models.moe_ep import ep_applicable
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg, model, prompts = _lm_mesh_setup(arch, B, S, capacity)
+    rules = _mesh_rules_on(world, data)
+    prefill = make_prefill_step(cfg, cache_len, rules=rules)
+    step = make_serve_step(cfg, rules=rules)
+    # the warm-up, its prefill under the census
+    (tok, caches), c = take_census(prefill, model, {"tokens": prompts})
+    census_prefill = {k: c.summary()[k] for k in (
+        "collectives", "max_collective_bytes")}
+    for i in range(2):
+        tok, caches = step(model, {"tokens": tok, "caches": caches,
+                                   "pos": S + i})
+    del caches
+    torch.cuda.synchronize()
+    dist.barrier()
+    with _LogitsTap() as tap:
+        t0 = time.perf_counter()
+        tok, caches = prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        out = [tok]
+        t0 = time.perf_counter()
+        for i in range(N - 1):
+            tok, caches = step(model, {"tokens": tok, "caches": caches,
+                                       "pos": S + i})
+            out.append(tok)
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+    tokens = torch.cat(out, 1)
+    digests = torch.stack([r.view(torch.int32).sum(dtype=torch.int64)
+                           for r in tap.rows]).tolist()
+    r = {"tokens": tokens.cpu().tolist(), "digests": digests,
+         "prefill_ms": t_prefill * 1e3,
+         "decode_ms_per_step": t_decode / (N - 1) * 1e3,
+         "cache_bytes": sum(t.numel() * t.element_size()
+                            for _, t in tree_leaves(caches)),
+         "ep_prefill": cfg.family == "moe" and ep_applicable(cfg, rules, B, S),
+         "ep_decode": cfg.family == "moe" and ep_applicable(cfg, rules, B, 1),
+         "census_prefill": census_prefill}
+    _, c = take_census(step, model, {"tokens": tok, "caches": caches,
+                                     "pos": S + N - 1})
+    r["census_decode"] = {k: c.summary()[k] for k in (
+        "collectives", "max_collective_bytes", "syncs")}
+    del caches
+    if cfg.family == "moe":
+        r["ep_vs_dense"] = _ep_vs_dense(model, rules, B, S)
+    if rank == 0:
+        if data != 1:
+            raise ValueError("rank 0 compares its rows: data must be 1")
+        one_prefill = make_prefill_step(cfg, cache_len)
+        one_step = make_serve_step(cfg)
+        with _LogitsTap() as one:
+            _, c1 = one_prefill(model, {"tokens": prompts})
+            for i in range(N - 1):
+                _, c1 = one_step(model, {"tokens": tokens[:, i:i + 1],
+                                         "caches": c1, "pos": S + i})
+        r["one_cache_bytes"] = sum(t.numel() * t.element_size()
+                                   for _, t in tree_leaves(c1))
+        r["compare"] = _mesh_vs_one(tap.rows, one.rows, tokens)
+    return r
+
+
+def lm_mesh_ranks(rank, world, data):
+    """One gloo rank of phase 3h: every configuration of ``LM_MESH`` in
+    turn (one world for both, so the ranks start once)."""
+    import torch
+
+    out = {}
+    for arch, (B, S, N, cache_len, capacity) in LM_MESH.items():
+        t0 = time.perf_counter()
+        out[arch] = lm_mesh_rank(rank, world, data, arch, B, S, N, cache_len,
+                                 capacity)
+        torch.cuda.empty_cache()
+        out[arch]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lm_mesh_nccl_rank(rank, world, arch, B, S, capacity):
+    """Phase 3h (c): one NCCL rank, mesh (1, 1), the MoE prefill (expert
+    parallelism over NCCL's ``all_to_all_single``) against the
+    single-device prefill."""
+    import torch
+
+    from repro_torch.analysis.census import take_census
+    from repro_torch.models.moe_ep import ep_applicable
+    from repro_torch.train.step import make_prefill_step
+
+    cfg, model, prompts = _lm_mesh_setup(arch, B, S, capacity)
+    rules = _mesh_rules_on(world, 1)
+    prefill = make_prefill_step(cfg, S + 1, rules=rules)
+    prefill(model, {"tokens": prompts})                   # warm-up
+    _, c = take_census(prefill, model, {"tokens": prompts})
+    with _LogitsTap() as tap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, _ = prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        make_prefill_step(cfg, S + 1)(model, {"tokens": prompts})
+    return {"ep": ep_applicable(cfg, rules, B, S),
+            "ep_vs_dense": _ep_vs_dense(model, rules, B, S),
+            "collectives": c.summary()["collectives"],
+            "prefill_ms": t_prefill * 1e3,
+            "compare": _mesh_vs_one(tap.rows[:1], tap.rows[1:], tok)}
+
+
+def phase_lm_mesh() -> dict:
+    """Phase 3h: LM serving on a mesh, gated against the single-device
+    path; returns each configuration's per-rank report."""
+    from repro_torch.core.distributed import spawn_local
+
+    store = ROOT / "build" / "lm_mesh"
+    store.mkdir(parents=True, exist_ok=True)
+    data, model_axis = LM_MESH_SHAPE
+    world = data * model_axis
+    card = card_line()
+    out = {}
+    t0 = time.perf_counter()
+    worlds = spawn_local(lm_mesh_ranks, world, store_dir=store,
+                         backend="gloo", timeout=900, args=(data,))
+    log(f"  {world} gloo ranks on cuda:0, both configurations: "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    for arch, (B, S, N, cache_len, capacity) in LM_MESH.items():
+        ranks = [w[arch] for w in worlds]
+        r0 = ranks[0]
+        for q, r in enumerate(ranks):
+            if r["tokens"] != r0["tokens"] or r["digests"] != r0["digests"]:
+                raise AssertionError(f"{arch}: rank {q}'s tokens or logits "
+                                     f"differ from rank 0's")
+        cmp = r0["compare"]
+        cap = "" if capacity is None else f", capacity {capacity}"
+        log(f"  {arch} on ({data}, {model_axis}) gloo ranks, B {B} x prompt "
+            f"{S}, {N} tokens, cache {cache_len}{cap}: every rank's tokens "
+            f"and logits bit for bit rank 0's; against the single-device "
+            f"path (fed the mesh's tokens) every step within the band, worst "
+            f"{cmp['worst_of_band']:.4f} of it; ties (step, row) "
+            f"{cmp['ties']}")
+        if r0["ep_prefill"] or r0["ep_decode"]:
+            if not r0["ep_prefill"] or r0["ep_decode"]:
+                raise AssertionError(f"{arch}: expert parallelism should run "
+                                     f"in prefill and not in decode")
+            gaps = [r["ep_vs_dense"] for r in ranks]
+            if any(gaps):
+                raise AssertionError(f"{arch}: expert parallelism differs "
+                                     f"from the dense MoE by {gaps}")
+            a2a = {q: r["census_prefill"]["collectives"].get(
+                "alltoall_base_", 0) for q, r in enumerate(ranks)}
+            log(f"    prefill: expert parallelism (all_to_all_single per "
+                f"rank {json.dumps(a2a)}; census "
+                f"{json.dumps(r0['census_prefill'])}); its first layer on "
+                f"a seeded ({B}, {S}) input bit for bit the dense MoE's on "
+                f"every rank; decode (S = 1): the dense MoE")
+        for q, r in enumerate(ranks):
+            log(f"    rank {q}: prefill {r['prefill_ms']:.2f} ms, decode "
+                f"{r['decode_ms_per_step']:.2f} ms/step, cache "
+                f"{r['cache_bytes']} B (single device "
+                f"{r0['one_cache_bytes']} B), a decode step's census "
+                f"{json.dumps(r['census_decode'])}; card: {card}")
+        log(f"    {r0['seconds']:.1f} s on rank 0 with the model's init")
+        out[arch] = ranks
+    arch = "granite-moe-3b-a800m"
+    B, S, _, _, capacity = LM_MESH[arch]
+    t0 = time.perf_counter()
+    (r,) = spawn_local(lm_mesh_nccl_rank, 1, store_dir=store, backend="nccl",
+                       args=(arch, B, S, capacity), timeout=600)
+    a2a = r["collectives"].get("alltoall_base_", 0)
+    if not r["ep"] or not a2a or r["ep_vs_dense"]:
+        raise AssertionError(f"NCCL rank: expert parallelism {r['ep']}, "
+                             f"collectives {r['collectives']}, against the "
+                             f"dense MoE {r['ep_vs_dense']}")
+    log(f"  1 NCCL rank, mesh (1, 1): {arch} prefill {B} x {S} through "
+        f"expert parallelism ({a2a} all_to_all_single on NCCL; census "
+        f"{json.dumps(r['collectives'])}; its first layer bit for bit the "
+        f"dense MoE's), logits within the band of the "
+        f"single-device prefill (worst {r['compare']['worst_of_band']:.4f} "
+        f"of it, ties {r['compare']['ties']}); prefill "
+        f"{r['prefill_ms']:.2f} ms; {time.perf_counter() - t0:.1f} s with "
+        f"its start; card: {card}")
+    out["nccl"] = r
+    return out
+
+
 #: Phase 3g, LM training with curation. Gate 1 (card = CPU port, fp32 at
 #: ``LM_CUT``): these three configurations, dense, MoE routing with its
 #: drops, and recurrence; the batch of each step (B, S).
@@ -2998,8 +3322,11 @@ def device_ms(fn, reps: int, flush=None) -> float:
     if flush is None:
         total = sum(_device_times([fn], reps).values())
     else:
-        skip = set(_device_times([flush], 3))
-        if not skip or skip & set(_device_times([fn], 3)):
+        # the names are read from sessions of ``reps`` calls too: the
+        # profiler has come back with no device activity at all from a
+        # session of three flushes, ten times in a row
+        skip = set(_device_times([flush], reps))
+        if not skip or skip & set(_device_times([fn], reps)):
             raise AssertionError(f"the L2 flush's kernels {sorted(skip)} are "
                                  f"missing or shared with the timed call")
         total = sum(t for key, t in _device_times([flush, fn], reps).items()
@@ -3440,6 +3767,15 @@ def main() -> int:
     ops.LAUNCHES.clear()
     phase_lm_serving()
     log(f"    launches of the port's kernels: "
+        f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[3h] LM serving on a mesh ({', '.join(LM_MESH)}; "
+        f"{LM_MESH_SHAPE} gloo ranks on cuda:0, then one NCCL rank; bf16)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops.LAUNCHES.clear()
+    phase_lm_mesh()
+    log(f"    launches of the port's kernels in this process: "
         f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none); phase "
         f"{time.perf_counter() - t0:.1f} s")
     peaks = peaks_for(torch.cuda.get_device_name(0))

@@ -316,6 +316,15 @@ def gather_shards(sh: Shards, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([parts[g] for g in sh.order])
 
 
+def gather_cat(sh: Shards, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every shard's ``x`` concatenated along ``dim`` in shard order (one
+    all-gather; exact, so every rank holds the same bits)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(len(sh.order))]
+    dist.all_gather(parts, x, group=sh.group)
+    return torch.cat([parts[g] for g in sh.order], dim=dim)
+
+
 def ordered_sum(sh: Shards, x: torch.Tensor) -> torch.Tensor:
     """Σ over the shards of ``x``, added in shard order — one all-gather and
     a left fold, so every rank gets the same bits whatever the backend."""

@@ -13,6 +13,16 @@ model allocates them once), decode writes the new K/V row at its slot —
 the counterpart of the reference's ``dynamic_update_slice``, whose buffer
 XLA reuses. Decode positions are host integers, so no step reads the
 device back.
+
+On a mesh (``rules``, and ``kv_dim``: the dim of the layer's K/V cache
+that is split over the model axis) each rank holds one block of the
+cache. Prefill computes the whole K/V and keeps its block. Decode either
+runs the flash-decoding path (the buffer split along the sequence,
+:func:`_decode_attn_seqshard`: local scores with a running max, one
+all-gather, and the rescaled sums folded in shard order) or, with the
+heads split, attends with its own heads and gathers the heads' outputs.
+Every combine is exact or added in one fixed order, so every rank holds
+the same bits.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.distributed import gather_cat, gather_shards
 
 NEG_INF = -2.0e38
 
@@ -154,7 +166,8 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
               window: Optional[int] = None, theta: Optional[float] = None,
               mode: str = "train", pos_offset: int = 0,
               cache: Optional[dict] = None, cache_len: Optional[int] = None,
-              cross_x: Optional[torch.Tensor] = None):
+              cross_x: Optional[torch.Tensor] = None, rules=None,
+              kv_dim: Optional[int] = None):
     """Self- or cross-attention. Returns (y, cache | None).
 
     ``prefill`` writes position p of the prompt at slot ``p % buf`` of
@@ -168,6 +181,12 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
     With ``cross_x`` (B, F, d), the encoder's output, K/V come from it:
     ``prefill`` fills an F-slot cache, ``decode`` reads that cache
     unchanged, and neither RoPE nor the k-norm applies.
+
+    ``kv_dim`` (with ``rules`` on a mesh): ``cache`` is this rank's block
+    of the whole cache, split over the model axis along dim 1 (the
+    buffer: decode runs :func:`_decode_attn_seqshard`) or 2 (the kv heads:
+    :func:`_decode_attn_heads`). ``train.step.cache_dims_tree`` makes that
+    choice.
     """
     B, S, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -208,37 +227,164 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
             bias = _mask_bias(mode, mask_kind, S, kv_len, q_pos, kv_pos,
                               None, window)
             out = _sdpa(q, k, v, bias, g)
-        if mode == "prefill":
+        if mode == "prefill" and kv_dim is not None:
+            _prefill_block(k, v, cache, mask_kind, window,
+                           rules.shards(("model",)), kv_dim)
+        elif mode == "prefill":
             cache = _prefill_cache(k, v, cache,
                                    None if is_cross else cache_len,
                                    mask_kind, window)
         else:
             cache = None
+    elif mode == "decode" and kv_dim is not None:
+        sh = rules.shards(("model",))
+        kind = "cross" if is_cross else mask_kind
+        k_new, v_new = (None, None) if is_cross else (k, v)
+        if kv_dim == 1:
+            out = _decode_attn_seqshard(q, k_new, v_new, cache, pos_offset,
+                                        kind, window, rules, g)
+        else:
+            out = _decode_attn_heads(q, k_new, v_new, cache, pos_offset,
+                                     kind, sh, g)
     elif mode == "decode" and is_cross:
         bias = torch.zeros((S, k.shape[1]), dtype=torch.float32, device=dev)
         out = _sdpa(q, k, v, bias, g)
     elif mode == "decode":
-        kc, vc = cache["k"], cache["v"]
-        buf = kc.shape[1]
-        sliding = mask_kind == "sliding"
-        slot = pos_offset % buf if sliding else pos_offset
-        if not 0 <= slot < buf:
-            raise IndexError(f"decode position {pos_offset} is past the "
-                             f"cache's {buf} slots")
-        kc[:, slot:slot + 1].copy_(k)
-        vc[:, slot:slot + 1].copy_(v)
-        idx = torch.arange(buf, dtype=torch.int32, device=dev)
-        if sliding:   # slot ages: written within the last `window` positions
-            ok = torch.remainder(slot - idx, buf) < min(pos_offset + 1, buf)
-        else:
-            ok = idx <= pos_offset
-        bias = _bias(ok)[None, None, :].expand(B, S, buf)
-        out = _sdpa(q, kc, vc, bias, g)
+        out = _decode_self(q, k, v, cache, pos_offset, mask_kind, g)
     else:
         raise ValueError(mode)
 
     y = out.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
     return y, cache
+
+
+def _decode_self(q, k, v, cache, pos_offset: int, mask_kind: str, g: int):
+    """One decode step of self-attention against a whole cache: the new
+    K/V row at its slot (``pos % buf`` on a sliding layer), then the slots
+    written within the window."""
+    B, S = q.shape[:2]
+    kc, vc = cache["k"], cache["v"]
+    buf = kc.shape[1]
+    sliding = mask_kind == "sliding"
+    slot = pos_offset % buf if sliding else pos_offset
+    if not 0 <= slot < buf:
+        raise IndexError(f"decode position {pos_offset} is past the "
+                         f"cache's {buf} slots")
+    kc[:, slot:slot + 1].copy_(k)
+    vc[:, slot:slot + 1].copy_(v)
+    idx = torch.arange(buf, dtype=torch.int32, device=q.device)
+    if sliding:   # slot ages: written within the last `window` positions
+        ok = torch.remainder(slot - idx, buf) < min(pos_offset + 1, buf)
+    else:
+        ok = idx <= pos_offset
+    bias = _bias(ok)[None, None, :].expand(B, S, buf)
+    return _sdpa(q, kc, vc, bias, g)
+
+
+# ---------------------------------------------------------------------------
+# attention on a mesh: the cache split over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _prefill_block(k, v, cache, mask_kind, window, sh, dim: int) -> None:
+    """Prefill's cache on a mesh: the whole ring (:func:`_prefill_cache`)
+    in a scratch buffer, then this rank's block of it along ``dim``."""
+    size = cache["k"].shape[dim]
+    shape = list(cache["k"].shape)
+    shape[dim] = size * sh.p
+    whole = _prefill_cache(k, v, {"k": k.new_empty(shape),
+                                  "v": v.new_empty(shape)},
+                           None, mask_kind, window)
+    for name in ("k", "v"):
+        cache[name].copy_(whole[name].narrow(dim, sh.index * size, size))
+
+
+def _decode_attn_heads(q, k_new, v_new, cache, pos: int, mask_kind: str,
+                       sh, g: int):
+    """One decode step with the cache split over its kv heads: this rank
+    writes and attends with its own kv heads and their q heads
+    (``_repeat_kv``'s grouping), then the heads' outputs are gathered in
+    shard order — exact, O(B·H·D) per layer."""
+    hk_loc = cache["k"].shape[2]
+    lo = sh.index * hk_loc
+    q_loc = q[:, :, lo * g:(lo + hk_loc) * g]
+    if mask_kind == "cross":
+        bias = torch.zeros((q.shape[1], cache["k"].shape[1]),
+                           dtype=torch.float32, device=q.device)
+        out = _sdpa(q_loc, cache["k"], cache["v"], bias, g)
+    else:
+        out = _decode_self(q_loc, k_new[:, :, lo:lo + hk_loc],
+                           v_new[:, :, lo:lo + hk_loc], cache, pos,
+                           mask_kind, g)
+    return gather_cat(sh, out, 2)
+
+
+def _decode_attn_seqshard(q, k_new, v_new, cache, pos: int, mask_kind: str,
+                          window, rules, g: int):
+    """One decode step with a sequence-split cache (flash-decoding), the
+    placement of kv heads that do not divide the model axis (gemma3's
+    one): splitting the buffer makes the combine an O(B·H·D) exchange per
+    layer, where splitting head_dim would exchange the (B, H, buf) scores.
+
+    The rank that owns the new token's slot (``pos % buf`` on a sliding
+    ring, ``pos`` otherwise; host integers, so no sync) writes its K/V
+    row. Each rank scores its block of slots with a running max ``m``,
+    its sum ``denom`` and its PV product ``o``; one all-gather brings every
+    rank's (m, denom, o), and each rank takes the max M, rescales each
+    part by exp(m − M) and adds the parts in shard order — so every rank
+    holds the same bits. Per layer: O(B·H·D) floats on the wire.
+    ``mask_kind`` "cross" reads an encoder cache: no write, every slot.
+
+    q: (B,1,H,D); k_new/v_new: (B,1,Hk,D) or None; cache k/v: this rank's
+    (B, buf/nm, Hk, D). Returns out (B,1,H,D).
+    """
+    sh = rules.shards(("model",))
+    kl, vl = cache["k"], cache["v"]
+    B, S_loc, Hk, D = kl.shape
+    buf = S_loc * sh.p
+    lo = sh.index * S_loc
+    slot = pos % buf if mask_kind == "sliding" else pos
+    if mask_kind != "cross":
+        if not 0 <= slot < buf:
+            raise IndexError(f"decode position {pos} is past the cache's "
+                             f"{buf} slots")
+        if lo <= slot < lo + S_loc:
+            kl[:, slot - lo:slot - lo + 1].copy_(k_new)
+            vl[:, slot - lo:slot - lo + 1].copy_(v_new)
+
+    kr, vr = _repeat_kv(kl, g), _repeat_kv(vl, g)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float())
+    scores = scores / math.sqrt(D)
+    idx = lo + torch.arange(S_loc, dtype=torch.int32, device=q.device)
+    if mask_kind == "sliding":
+        ok = torch.remainder(slot - idx, buf) < min(pos + 1, buf)
+    elif mask_kind == "cross":
+        ok = torch.ones(S_loc, dtype=torch.bool, device=q.device)
+    else:
+        ok = idx <= pos
+    scores = scores.masked_fill(~ok, NEG_INF)
+    m = torch.clamp(torch.amax(scores, dim=-1), min=-1e30)       # (B,H,1)
+    p = torch.exp(scores - m[..., None])
+    denom = torch.sum(p, dim=-1)                                 # (B,H,1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype), vr)      # (B,1,H,D)
+
+    H = q.shape[2]
+    n = B * H
+    parts = gather_shards(sh, torch.cat([m.reshape(n), denom.reshape(n),
+                                         o.float().reshape(-1)]))
+    ms = parts[:, :n].reshape(sh.p, B, H, 1)
+    M = torch.amax(ms, dim=0)                                    # exact
+    o_g = d_g = None
+    for r in range(sh.p):
+        scale = torch.exp(ms[r] - M)                             # (B,H,1)
+        o_r = parts[r, 2 * n:].reshape(o.shape).to(o.dtype)
+        o_r = o_r * scale.transpose(1, 2)[..., None].to(o.dtype)
+        d_r = parts[r, n:2 * n].reshape(B, H, 1) * scale
+        o_g = o_r if o_g is None else o_g + o_r
+        d_g = d_r if d_g is None else d_g + d_r
+    out = o_g / torch.clamp(d_g, min=1e-30).transpose(1, 2)[..., None] \
+        .to(o_g.dtype)
+    return out.to(q.dtype)
 
 
 def _prefill_cache(k, v, cache, cache_len, mask_kind, window):
@@ -288,13 +434,20 @@ def mlp(p, x, act: str):
 # ---------------------------------------------------------------------------
 
 
-def moe(p, cfg, x, act: str, capacity_factor: float | None = None):
+def moe(p, cfg, x, act: str, capacity_factor: float | None = None,
+        data=None):
     """x: (B, S, D) → (B, S, D). Tokens routed to their top-K experts,
     sorted (stably) by expert into an (E, C, D) buffer; assignments past
     an expert's capacity C = ⌈T·K/E·capacity⌉ (T: this call's tokens) are
     dropped; padded experts never win. Each token's K contributions are
     summed over K in one fixed order (not scattered with atomics), so the
-    result is the same on every run."""
+    result is the same on every run.
+
+    ``data``: the data axes' shards when ``x`` is this rank's block of
+    rows of a batch split over them. Capacity is then the whole batch's,
+    and an assignment's rank in its expert's queue counts the assignments
+    of the shards before this one (one all-gather of the (E,) counts), so
+    exactly the reference's global drops happen."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity
     B, S, D = x.shape
@@ -321,11 +474,16 @@ def moe(p, cfg, x, act: str, capacity_factor: float | None = None):
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
 
-    C = max(int(math.ceil(T * K / E * capacity_factor)), 1)
+    T_all = T if data is None else T * data.p
+    C = max(int(math.ceil(T_all * K / E * capacity_factor)), 1)
     # rank of each assignment within its expert group (se is sorted)
     starts = torch.searchsorted(se, torch.arange(E, device=dev))
     rank = torch.arange(T * K, device=dev) - starts[se]
     keep = rank < C
+    if data is not None:
+        ends = torch.searchsorted(se, torch.arange(E, device=dev), right=True)
+        before = gather_shards(data, ends - starts)[:data.index].sum(dim=0)
+        keep = rank + before[se] < C
     slot = torch.where(keep, se * C + torch.clamp(rank, 0, C - 1), E * C)
 
     buf = xt.new_zeros((E * C + 1, D))

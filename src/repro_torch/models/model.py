@@ -25,10 +25,25 @@ The cache is the reference's tree: a dict keyed like :func:`cache_specs`
 with stacked ``(count, B, …)`` leaves per group — K and V, and the
 recurrent states as the reference's tuples — plus whisper's ``enc_out``,
 so the two can be compared leaf by leaf.
+
+On a mesh (``rules``: a :class:`~repro_torch.distributed.sharding.MeshRules`
+on a ``DeviceMesh``) every rank runs :func:`forward` with the whole
+batch. It keeps its own rows (split over the data axes when the batch
+divides them), holds its own block of each cache leaf (the placement of
+``train.step.cache_dims_tree``: a :class:`MeshCaches`), and returns its
+rows' logits. The weights are whole on every rank and the dense layers
+run on each rank's rows as they do on one device; the collectives are
+the two regions of the reference's mesh — expert-parallel MoE
+(:mod:`repro_torch.models.moe_ep`) and the sequence-split decode
+(``layers._decode_attn_seqshard``) — the attention heads' outputs where
+the cache is split over its heads, the whole batch's expert counts where
+the dense MoE drops, and, for a recurrent state split over the model
+axis, its blocks gathered for the step (the blocks then keep their part).
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import math
 from typing import Optional
@@ -38,10 +53,13 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.core.distributed import gather_cat
 from repro_torch.core.multiset import resolve_device
+from repro_torch.distributed.sharding import MeshRules, on_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe_ep import ep_applicable, moe_ep
 from repro_torch.models.params import dense_init
 
 ATTN_TYPES = ("attn", "attn_local", "attn_global", "moe")
@@ -54,9 +72,12 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 #: for the truncated normal's scale, ``("full", value)``, or ``"a_log"``
 #: (Mamba's log(1 … N) per channel). ``dtype``:
 #: None for the model's, else a dtype name the leaf keeps in a narrower
-#: model (``a_log`` is fp32 in a bf16 model).
-Leaf = collections.namedtuple("Leaf", "shape init dtype",
-                              defaults=(None, None))
+#: model (``a_log`` is fp32 in a bf16 model). ``dims``: the reference's
+#: logical dim spec of the leaf (one tuple of alternatives per dim, see
+#: :mod:`repro_torch.distributed.sharding`); a group's stacked layer dim
+#: is not in it (:func:`param_dims` prefixes it).
+Leaf = collections.namedtuple("Leaf", "shape init dtype dims",
+                              defaults=(None, None, None))
 TensorSpec = collections.namedtuple("TensorSpec", "shape dtype")
 ONES, ZEROS = ("full", 1.0), ("full", 0.0)
 
@@ -72,14 +93,17 @@ def leaf_dtype(leaf: Leaf, model_dtype: torch.dtype) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *others):
     """``fn`` over the leaves of nested dicts and tuples (a namedtuple, as
-    :class:`TensorSpec`, is a leaf)."""
+    :class:`TensorSpec`, is a leaf), and over the matching leaves of
+    ``others``, trees of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
     if type(tree) is tuple:
-        return tuple(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return tuple(tree_map(fn, v, *(o[i] for o in others))
+                     for i, v in enumerate(tree))
+    return fn(tree, *others)
 
 
 def tree_leaves(tree, path: str = "") -> list:
@@ -92,6 +116,17 @@ def tree_leaves(tree, path: str = "") -> list:
         return [x for i, v in enumerate(tree)
                 for x in tree_leaves(v, f"{path}[{i}]")]
     return [(path, tree)]
+
+
+def tree_map_with_keys(fn, tree, keys=()):
+    """``fn(dict keys on the path, leaf)`` over nested dicts and tuples
+    (a tuple's index is no key, as in the reference's key filter)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_keys(fn, v, keys + (k,))
+                for k, v in tree.items()}
+    if type(tree) is tuple:
+        return tuple(tree_map_with_keys(fn, v, keys) for v in tree)
+    return fn(list(keys), tree)
 
 
 # ---------------------------------------------------------------------------
@@ -118,19 +153,29 @@ class ParamTree(nn.Module):
         return k in self._parameters or k in self._modules
 
 
+#: dim specs of the reference's parameters
+_REP1, _REP2 = ((None,),), ((None,), (None,))
+_IN_OUT, _OUT_IN = (("fsdp",), ("tp",)), (("tp",), ("fsdp",))
+_HEADS = (("fsdp",), ("tp",), (None, "tp"))
+_EXPERTS = (("expert",), ("fsdp",), (None,))
+
+
 def _rmsnorm(d: int) -> dict:
-    return {"scale": Leaf((d,), ONES)}
+    return {"scale": Leaf((d,), ONES, dims=_REP1)}
 
 
 def _layernorm(d: int) -> dict:
-    return {"scale": Leaf((d,), ONES), "bias": Leaf((d,), ZEROS)}
+    return {"scale": Leaf((d,), ONES, dims=_REP1),
+            "bias": Leaf((d,), ZEROS, dims=_REP1)}
 
 
 def _attn_spec(cfg: ModelConfig, cross: bool = False) -> dict:
     d, h, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    attn = {"wq": Leaf((d, h, hd)), "wk": Leaf((d, hk, hd)),
-            "wv": Leaf((d, hk, hd)),
-            "wo": Leaf((h, hd, d), 1.0 / math.sqrt(h * hd))}
+    attn = {"wq": Leaf((d, h, hd), dims=_HEADS),
+            "wk": Leaf((d, hk, hd), dims=_HEADS),
+            "wv": Leaf((d, hk, hd), dims=_HEADS),
+            "wo": Leaf((h, hd, d), 1.0 / math.sqrt(h * hd),
+                       dims=(("tp",), (None, "tp"), ("fsdp",)))}
     if cfg.qk_norm and not cross:
         attn["q_norm"] = _rmsnorm(hd)
         attn["k_norm"] = _rmsnorm(hd)
@@ -138,39 +183,49 @@ def _attn_spec(cfg: ModelConfig, cross: bool = False) -> dict:
 
 
 def _mlp_spec(d: int, d_ff: int, gated: bool = True) -> dict:
-    p = {"w_up": Leaf((d, d_ff)), "w_down": Leaf((d_ff, d))}
+    p = {"w_up": Leaf((d, d_ff), dims=_IN_OUT),
+         "w_down": Leaf((d_ff, d), dims=_OUT_IN)}
     if gated:
-        p["w_gate"] = Leaf((d, d_ff))
+        p["w_gate"] = Leaf((d, d_ff), dims=_IN_OUT)
     return p
 
 
 def _mlstm_spec(cfg: ModelConfig) -> dict:
     d, h, bs = cfg.d_model, cfg.num_heads, cfg.ssm_qkv_block
     di = d * cfg.ssm_expand
-    blk = Leaf((di // bs, bs, bs))
-    return {"w_up": Leaf((d, di)), "w_z": Leaf((d, di)),
-            "conv": Leaf((cfg.ssm_conv, di)), "wq": blk, "wk": blk,
-            "wv": blk, "w_if": Leaf((di, 2 * h), 0.01),
-            "f_bias": Leaf((h,), ("full", 3.0)),
-            "norm": Leaf((h, di // h), ONES), "w_down": Leaf((di, d))}
+    blk = Leaf((di // bs, bs, bs), dims=(("tp",), (None,), (None,)))
+    return {"w_up": Leaf((d, di), dims=_IN_OUT),
+            "w_z": Leaf((d, di), dims=_IN_OUT),
+            "conv": Leaf((cfg.ssm_conv, di), dims=((None,), ("tp",))),
+            "wq": blk, "wk": blk, "wv": blk,
+            "w_if": Leaf((di, 2 * h), 0.01, dims=(("tp",), (None,))),
+            "f_bias": Leaf((h,), ("full", 3.0), dims=_REP1),
+            "norm": Leaf((h, di // h), ONES, dims=_REP2),
+            "w_down": Leaf((di, d), dims=_OUT_IN)}
 
 
 def _slstm_spec(cfg: ModelConfig) -> dict:
     d, h = cfg.d_model, cfg.num_heads
     dh, dff = d // h, int(d * 4 / 3)
-    return {"w_in": Leaf((d, 4 * d)), "r": Leaf((h, dh, 4 * dh), 0.1),
-            "f_bias": Leaf((h, dh), ("full", 3.0)),
-            "norm": Leaf((h, dh), ONES), "ffn_gate": Leaf((d, dff)),
-            "ffn_up": Leaf((d, dff)), "ffn_down": Leaf((dff, d))}
+    return {"w_in": Leaf((d, 4 * d), dims=_IN_OUT),
+            "r": Leaf((h, dh, 4 * dh), 0.1, dims=((None,),) * 3),
+            "f_bias": Leaf((h, dh), ("full", 3.0), dims=_REP2),
+            "norm": Leaf((h, dh), ONES, dims=_REP2),
+            "ffn_gate": Leaf((d, dff), dims=_IN_OUT),
+            "ffn_up": Leaf((d, dff), dims=_IN_OUT),
+            "ffn_down": Leaf((dff, d), dims=_OUT_IN)}
 
 
 def _mamba_spec(cfg: ModelConfig) -> dict:
     d, N = cfg.d_model, cfg.ssm_state
     di = d * cfg.ssm_expand
-    return {"w_in": Leaf((d, 2 * di)), "conv": Leaf((cfg.ssm_conv, di)),
-            "w_bcdt": Leaf((di, 2 * N + 1)), "dt_bias": Leaf((di,), ZEROS),
-            "a_log": Leaf((di, N), "a_log", "float32"),
-            "d_skip": Leaf((di,), ONES), "w_out": Leaf((di, d))}
+    return {"w_in": Leaf((d, 2 * di), dims=_IN_OUT),
+            "conv": Leaf((cfg.ssm_conv, di), dims=((None,), ("tp",))),
+            "w_bcdt": Leaf((di, 2 * N + 1), dims=(("tp",), (None,))),
+            "dt_bias": Leaf((di,), ZEROS, dims=_REP1),
+            "a_log": Leaf((di, N), "a_log", "float32", dims=_REP2),
+            "d_skip": Leaf((di,), ONES, dims=_REP1),
+            "w_out": Leaf((di, d), dims=_OUT_IN)}
 
 
 def _layer_spec(cfg: ModelConfig, kind: str) -> dict:
@@ -179,8 +234,11 @@ def _layer_spec(cfg: ModelConfig, kind: str) -> dict:
         p = {"ln1": _rmsnorm(d), "attn": _attn_spec(cfg), "ln2": _rmsnorm(d)}
         if kind == "moe":
             e, dff = cfg.expert_pad_to, cfg.d_ff
-            p["moe"] = {"router": Leaf((d, e)), "w_gate": Leaf((e, d, dff)),
-                        "w_up": Leaf((e, d, dff)), "w_down": Leaf((e, dff, d))}
+            p["moe"] = {"router": Leaf((d, e), dims=(("fsdp",), (None,))),
+                        "w_gate": Leaf((e, d, dff), dims=_EXPERTS),
+                        "w_up": Leaf((e, d, dff), dims=_EXPERTS),
+                        "w_down": Leaf((e, dff, d), dims=(("expert",), (None,),
+                                                          ("fsdp",)))}
         else:
             p["mlp"] = _mlp_spec(d, cfg.d_ff, gated=cfg.act != "gelu_plain")
         return p
@@ -192,7 +250,8 @@ def _layer_spec(cfg: ModelConfig, kind: str) -> dict:
         return {"ln1": _rmsnorm(d), "attn": _attn_spec(cfg),
                 "mamba": _mamba_spec(cfg), "attn_norm": _rmsnorm(d),
                 "mamba_norm": _rmsnorm(d),
-                "mix": {"w": Leaf((2,), ("full", 0.5))}, "ln2": _rmsnorm(d),
+                "mix": {"w": Leaf((2,), ("full", 0.5), dims=_REP1)},
+                "ln2": _rmsnorm(d),
                 "mlp": _mlp_spec(d, cfg.d_ff)}
     if kind == "enc_attn":
         return {"ln1": _layernorm(d), "attn": _attn_spec(cfg),
@@ -216,16 +275,33 @@ def param_specs(cfg: ModelConfig) -> dict:
     """The parameter tree's leaves (:class:`Leaf`), groups as lists of
     per-layer trees."""
     d = cfg.d_model
-    spec = {"embed": {"w": Leaf((cfg.vocab_size, d), 0.02)},
+    spec = {"embed": {"w": Leaf((cfg.vocab_size, d), 0.02, dims=_OUT_IN)},
             "final_norm": (_layernorm(d) if cfg.family == "encdec"
                            else _rmsnorm(d))}
     if not cfg.tie_embeddings:
-        spec["head"] = {"w": Leaf((d, cfg.vocab_size))}
+        spec["head"] = {"w": Leaf((d, cfg.vocab_size), dims=_IN_OUT)}
     if cfg.family == "encdec":
-        spec["dec_pos"] = {"w": Leaf((cfg.max_seq_len, d), 0.02)}
+        spec["dec_pos"] = {"w": Leaf((cfg.max_seq_len, d), 0.02,
+                                     dims=((None,), ("fsdp",)))}
     spec["groups"] = {f"g{i}_{kind}": [_layer_spec(cfg, kind)] * count
                       for i, (kind, count) in enumerate(_group_kinds(cfg))}
     return spec
+
+
+def param_dims(cfg: ModelConfig) -> dict:
+    """The dim-spec tree of the reference's ``init_model``: every leaf's
+    :attr:`Leaf.dims`, a group's as one tree for its stacked layers, with
+    the unsharded layer dim first."""
+    def walk(s, stacked: bool):
+        if isinstance(s, Leaf):
+            return (((None,),) if stacked else ()) + tuple(s.dims)
+        return {k: walk(v, stacked) for k, v in s.items()}
+
+    spec = param_specs(cfg)
+    out = {k: walk(v, False) for k, v in spec.items() if k != "groups"}
+    out["groups"] = {k: walk(layers[0], True)
+                     for k, layers in spec["groups"].items()}
+    return out
 
 
 def spec_map(fn, spec, tree, path: str = ""):
@@ -326,9 +402,14 @@ def _attn_kind_args(cfg: ModelConfig, kind: str):
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
                 pos_offset: int, cache: Optional[dict],
-                cache_len: Optional[int], cross_x=None):
+                cache_len: Optional[int], cross_x=None, rules=None,
+                place=None, layout=None):
     """One layer of the given kind. Returns (x, new_cache); in prefill and
-    decode the new cache is ``cache``'s tensors, written in place."""
+    decode the new cache is ``cache``'s tensors, written in place.
+
+    On a mesh: ``rules``, the forward's :class:`Placement` and the
+    layer's ``layout`` (per cache leaf, the dim split over the model axis,
+    or None)."""
     eps = cfg.norm_eps
     norm = L.layer_norm if cfg.family == "encdec" else L.rms_norm
     new_cache: dict = {}
@@ -336,7 +417,8 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
         h, c_attn = L.attention(
             p["attn"], cfg, norm(p["ln1"], x, eps), mode=mode,
             pos_offset=pos_offset, cache=cache["attn"] if cache else None,
-            cache_len=cache_len, **_attn_kind_args(cfg, kind))
+            cache_len=cache_len, rules=rules, kv_dim=_kv_dim(layout, "attn"),
+            **_attn_kind_args(cfg, kind))
         x = x + h
         if c_attn is not None:
             new_cache["attn"] = c_attn
@@ -344,35 +426,45 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
             h, c_cross = L.attention(
                 p["cross"], cfg, norm(p["ln_cross"], x, eps), mode=mode,
                 pos_offset=pos_offset, cache=cache["cross"] if cache else None,
-                cross_x=cross_x, mask_kind="cross")
+                cross_x=cross_x, mask_kind="cross", rules=rules,
+                kv_dim=_kv_dim(layout, "cross"))
             x = x + h
             if c_cross is not None:
                 new_cache["cross"] = c_cross
         h2in = norm(p["ln2"], x, eps)
         if kind == "moe":
-            h2 = L.moe(p["moe"], cfg, h2in, cfg.act)
+            if place is not None and ep_applicable(cfg, rules, place.batch,
+                                                   h2in.shape[1]):
+                h2 = moe_ep(p["moe"], cfg, h2in, cfg.act, rules)
+            else:
+                h2 = L.moe(p["moe"], cfg, h2in, cfg.act,
+                           data=place.data if place is not None else None)
         else:
             h2 = L.mlp(p["mlp"], h2in,
                        "gelu" if cfg.family == "encdec" else cfg.act)
         return x + h2, new_cache
     if kind == "mlstm":
-        h, c = S.mlstm_block(p["mlstm"], cfg, L.rms_norm(p["ln"], x, eps),
-                             mode=mode, cache=cache)
+        h, c = _whole_states(functools.partial(
+            S.mlstm_block, p["mlstm"], cfg, L.rms_norm(p["ln"], x, eps),
+            mode=mode), cache, layout, rules, mode)
         return x + h, c
     if kind == "slstm":
-        h, c = S.slstm_block(p["slstm"], cfg, L.rms_norm(p["ln"], x, eps),
-                             mode=mode, cache=cache)
+        h, c = _whole_states(functools.partial(
+            S.slstm_block, p["slstm"], cfg, L.rms_norm(p["ln"], x, eps),
+            mode=mode), cache, layout, rules, mode)
         return x + h, c
     if kind in HYBRID_TYPES:
         xin = L.rms_norm(p["ln1"], x, eps)
         ha, c_attn = L.attention(
             p["attn"], cfg, xin, mode=mode, pos_offset=pos_offset,
             cache=cache["attn"] if cache else None, cache_len=cache_len,
+            rules=rules, kv_dim=_kv_dim(layout, "attn"),
             **_attn_kind_args(cfg, kind))
-        hm, c_ssm = S.mamba_block(
-            p["mamba"], cfg, xin, mode=mode,
-            cache={"ssm": cache["ssm"], "conv": cache["conv"]} if cache
-            else None)
+        hm, c_ssm = _whole_states(
+            functools.partial(S.mamba_block, p["mamba"], cfg, xin, mode=mode),
+            {"ssm": cache["ssm"], "conv": cache["conv"]} if cache else None,
+            {"ssm": layout["ssm"], "conv": layout["conv"]} if layout
+            else None, rules, mode)
         ha = L.rms_norm(p["attn_norm"], ha, eps)
         hm = L.rms_norm(p["mamba_norm"], hm, eps)
         w = p["mix"]["w"].to(ha.dtype)
@@ -382,6 +474,42 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
             c_ssm["attn"] = c_attn
         return x, c_ssm
     raise ValueError(kind)
+
+
+def _kv_dim(layout, name: str):
+    return layout[name]["k"] if layout and name in layout else None
+
+
+def _whole_states(block, cache, layout, rules, mode: str):
+    """``block(cache=cache)``, where ``layout`` may split some of the
+    cache's leaves (recurrent states, conv buffers) over the model axis:
+    those leaves are whole for the step — decode gathers their blocks in
+    shard order, prefill starts from zeros as on one device — and the
+    rank's block of the result is written back. Exact: the step runs as
+    it does on one device."""
+    if cache is None or layout is None or \
+            all(d is None for _, d in tree_leaves(layout)):
+        return block(cache=cache)
+    sh = rules.shards(("model",))
+
+    def whole(t, d):
+        if d is None:
+            return t
+        if mode == "decode":
+            return gather_cat(sh, t, d)
+        shape = list(t.shape)
+        shape[d] *= sh.p
+        return t.new_zeros(shape)
+
+    full = tree_map(whole, cache, layout)
+    h, _ = block(cache=full)
+
+    def keep(t, f, d):
+        if d is not None:
+            t.copy_(f.narrow(d, sh.index * t.shape[d], t.shape[d]))
+
+    tree_map(keep, cache, full, layout)
+    return h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +552,12 @@ def _layer_cache_spec(cfg: ModelConfig, kind: str, B: int, cache_len: int,
     raise ValueError(kind)
 
 
-def cache_specs(cfg: ModelConfig, B: int, cache_len: int) -> dict:
+def cache_specs(cfg: ModelConfig, B: int, cache_len: int,
+                rules=None) -> dict:
     """:class:`TensorSpec` tree of the decode cache (stacked per group;
-    the encoder's group holds none, whisper's ``enc_out`` is unstacked)."""
+    the encoder's group holds none, whisper's ``enc_out`` is unstacked).
+    With ``rules`` (:class:`MeshRules`), each leaf's shape is one rank's
+    block under ``train.step.cache_dims_tree``'s placement."""
     dtype = DTYPES[cfg.dtype]
     out = {}
     if cfg.encoder_layers:
@@ -436,13 +567,110 @@ def cache_specs(cfg: ModelConfig, B: int, cache_len: int) -> dict:
             out[f"g{i}_{kind}"] = tree_map(
                 lambda s, count=count: TensorSpec((count,) + s.shape, s.dtype),
                 _layer_cache_spec(cfg, kind, B, cache_len, dtype))
+    if isinstance(rules, MeshRules):
+        from repro_torch.train.step import cache_dims_tree
+
+        out = tree_map(lambda s, d: TensorSpec(rules.local_shape(s.shape, d),
+                                               s.dtype),
+                       out, cache_dims_tree(cfg, out, rules))
     return out
 
 
-def zero_caches(cfg: ModelConfig, B: int, cache_len: int, device=None) -> dict:
+class MeshCaches(dict):
+    """A decode cache on a mesh: this rank's blocks of the tree of
+    :func:`cache_specs` (``rules=``), with the whole batch and the buffer
+    length their placement was computed from, which decode reads."""
+
+    def __init__(self, tree: dict, batch: int, cache_len: int):
+        super().__init__(tree)
+        self.batch, self.cache_len = batch, cache_len
+
+
+def zero_caches(cfg: ModelConfig, B: int, cache_len: int, device=None,
+                rules=None) -> dict:
+    """Zeroed caches for B requests; on a mesh (``rules``), this rank's
+    blocks only, as a :class:`MeshCaches`."""
     dev = resolve_device(device)
-    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
-                    cache_specs(cfg, B, cache_len))
+    tree = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_specs(cfg, B, cache_len, rules))
+    return MeshCaches(tree, B, cache_len) if on_mesh(rules) else tree
+
+
+# ---------------------------------------------------------------------------
+# placement on a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """One forward on the mesh, as this rank sees it: the whole batch, the
+    data axes' shards when its rows are split over them (else None), and
+    per cache group the layer's layout (:func:`_layouts`)."""
+
+    batch: int
+    data: object
+    layouts: dict
+
+
+def row_shards(rules, B: int):
+    """The data axes' shards when B rows split over them, else None (a
+    batch that does not divide runs whole on every data rank, as the
+    reference's flash-decoding path replicates it)."""
+    dp = rules.data_axes
+    n = math.prod(rules.shape[a] for a in dp)
+    return rules.shards(dp) if n > 1 and B % n == 0 else None
+
+
+_ROWS = (("batch",),)
+
+
+@functools.lru_cache(maxsize=32)
+def _layouts(cfg: ModelConfig, B: int, cache_len: int, rules) -> dict:
+    """Per cache group, a tree like one layer's cache whose leaves give
+    the dim (of the layer's tensor) that the placement splits over the
+    model axis, or None."""
+    from repro_torch.train.step import cache_dims_tree
+
+    specs = cache_specs(cfg, B, cache_len)
+    dims = cache_dims_tree(cfg, specs, rules)
+    nm = rules.shape.get("model", 1)
+
+    def model_dim(s, d):
+        if nm > 1:
+            for i, phys in enumerate(rules.spec(s.shape, d)[1:]):
+                if phys == "model" or (isinstance(phys, tuple)
+                                       and "model" in phys):
+                    return i
+        return None
+
+    return {k: tree_map(model_dim, specs[k], dims[k])
+            for k in specs if k != "enc_out"}
+
+
+def _placed(cfg: ModelConfig, batch: dict, mode: str, caches,
+            cache_len: Optional[int], rules):
+    """(this rank's batch, :class:`Placement`, the whole buffer length)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    if mode == "decode" or (mode == "prefill" and caches is not None):
+        if not isinstance(caches, MeshCaches):
+            raise ValueError("on a mesh, decode (and a prefill handed its "
+                             "caches) needs the MeshCaches that prefill or "
+                             "zero_caches(rules=...) made")
+        if caches.batch != B:
+            raise ValueError(f"the caches were placed for a batch of "
+                             f"{caches.batch}, the batch has {B} rows")
+        cache_len = caches.cache_len
+    elif mode == "prefill" and cache_len is None:
+        front = batch.get("frontend")
+        cache_len = tokens.shape[1] + (front.shape[1] if cfg.family == "vlm"
+                                       and front is not None else 0)
+    data = row_shards(rules, B)
+    if data is not None:
+        batch = {k: rules.local(v, _ROWS + ((None,),) * (v.dim() - 1))
+                 for k, v in batch.items()}
+    layouts = _layouts(cfg, B, cache_len, rules) if mode != "train" else {}
+    return batch, Placement(B, data, layouts), cache_len
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +734,8 @@ def _encode(model: DecoderLM, cfg: ModelConfig, frontend,
 
 def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
             caches: Optional[dict] = None, pos_offset: int = 0,
-            cache_len: Optional[int] = None, remat: bool = False):
+            cache_len: Optional[int] = None, remat: bool = False,
+            rules=None):
     """Returns (logits, caches | None).
 
     ``batch``: ``tokens`` (B, S) int and ``frontend`` (B, frontend_len,
@@ -518,9 +747,21 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
     if None); ``decode`` updates ``caches`` in place and returns the same
     tree. ``remat`` checkpoints each layer in train mode (the other modes
     ignore it); the values are the same either way.
+
+    ``rules`` (:class:`MeshRules` on a ``DeviceMesh``): every rank passes
+    the whole batch and gets its own rows' logits (the rows split over the
+    data axes when they divide them); ``caches`` are this rank's blocks, a
+    :class:`MeshCaches`. With ``rules`` None (or ``NoRules``) nothing
+    changes.
     """
     cfg = model.cfg
     layer_fn = _layer_fn(remat and mode == "train")
+    place = None
+    if on_mesh(rules):
+        batch, place, cache_len = _placed(cfg, batch, mode, caches,
+                                          cache_len, rules)
+    else:
+        rules = None
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     if mode == "decode" and caches is None:
@@ -548,7 +789,10 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
     if prefix:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
     if mode == "prefill":
-        if caches is None:
+        if caches is None and place is not None:
+            caches = zero_caches(cfg, place.batch, cache_len,
+                                 device=x.device, rules=rules)
+        elif caches is None:
             caches = zero_caches(cfg, x.shape[0], x.shape[1] if cache_len
                                  is None else cache_len, device=x.device)
         if cross_x is not None:
@@ -559,12 +803,14 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
         if kind == "enc_attn":
             continue
         gcache = caches[key] if mode != "train" else None
+        layout = place.layouts.get(key) if place is not None else None
         for i, layer in enumerate(group):
             lc = (tree_map(lambda t, i=i: t[i], gcache)
                   if gcache is not None else None)
             x, _ = layer_fn(layer, cfg, kind, x, mode=mode,
                             pos_offset=pos_offset, cache=lc,
-                            cache_len=cache_len, cross_x=cross_x)
+                            cache_len=cache_len, cross_x=cross_x,
+                            rules=rules, place=place, layout=layout)
 
     norm = L.layer_norm if cfg.family == "encdec" else L.rms_norm
     x = norm(model.final_norm, x, cfg.norm_eps)

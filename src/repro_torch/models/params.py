@@ -3,8 +3,10 @@
 The port draws its own random model from an explicit ``torch.Generator``;
 it does not reproduce the JAX package's bits (parity tests carry the JAX
 parameters across, :func:`repro_torch.convert.lm_params_from_arrays`), but
-it does reproduce their distribution, fan-in rule included. There are no
-dim specs here: sharding belongs to the LM mesh.
+it does reproduce their distribution, fan-in rule included. The dim specs
+that the reference's ``PLeaf`` carries live on the port's parameter specs
+(``models.model.Leaf.dims``), which :mod:`repro_torch.distributed.sharding`
+reads.
 """
 from __future__ import annotations
 

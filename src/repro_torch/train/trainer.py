@@ -6,8 +6,8 @@ is snapshotted (async); on start, ``resume="auto"`` picks up the latest
 complete checkpoint, written by this package or by the reference (the two
 share the format, see :mod:`repro_torch.train.checkpoint`). Each step ends
 in one ``torch.cuda.synchronize`` (the reference's ``block_until_ready``);
-metrics are read to the host only at ``log_every`` steps. The LM mesh
-(``mesh=``) is a later slice.
+metrics are read to the host only at ``log_every`` steps. Training on the
+LM mesh (``mesh=``) is a later slice, ROADMAP A.9.3b.
 """
 from __future__ import annotations
 
@@ -48,9 +48,11 @@ def train(
     """Run the loop on ``device`` (``"cuda"`` unless named); returns
     (final state, history list)."""
     if mesh is not None:
-        raise NotImplementedError("training on a mesh needs the LM mesh "
-                                  "(ROADMAP A.9.3), which the port does not "
-                                  "have yet; pass mesh=None")
+        raise NotImplementedError("training on a mesh is the LM mesh's "
+                                  "training half (ROADMAP A.9.3b), which the "
+                                  "port does not have yet; the mesh serves "
+                                  "(make_prefill_step / make_serve_step with "
+                                  "rules=); pass mesh=None")
     dev = resolve_device(device)
     state = St.init_train_state(cfg, tcfg.seed, dev)
     chash = config_hash((cfg, opt_cfg))

@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 dist = pytest.importorskip("torch.distributed")
 
 from repro_torch.analysis import census as cz  # noqa: E402

@@ -21,6 +21,9 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro_torch.analysis import audit  # noqa: E402
 from repro_torch.analysis import registry as rg  # noqa: E402

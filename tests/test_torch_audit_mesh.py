@@ -14,6 +14,9 @@ The ranks import this module: it imports no JAX.
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro_torch.analysis import registry as rg  # noqa: E402
 

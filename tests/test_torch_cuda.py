@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro_torch.core.functions import SIM_ALPHA, SIM_BETA  # noqa: E402
 from repro_torch.core.precision import resolve  # noqa: E402

@@ -11,6 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro.configs import get_reduced_config as ref_reduced
 from repro.models import layers as JL

@@ -18,6 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro import configs as ref_configs
 from repro.models import model as JM

@@ -9,6 +9,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -16,6 +16,9 @@ and the selection equals the ``torch`` backend's.
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro.core import EvalConfig as RefEvalConfig
 from repro.data import pipeline as RP

@@ -14,6 +14,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro.core import SelectionService as JSelectionService  # noqa: E402
 from repro_torch.core import (SelectionService, run_selection,  # noqa: E402

@@ -26,6 +26,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_threads import cap_torch_threads  # noqa: E402
+
+cap_torch_threads()
 
 from repro_torch.core import (FUNCTIONS, EvalConfig,  # noqa: E402
                               StreamIngestionService, salsa, sieve_streaming,
