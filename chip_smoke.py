@@ -115,7 +115,8 @@ Phases (any failure exits non-zero before the result lines):
    nothing), each decoded position's logits against the train-mode
    forward's within ``LM_DECODE_BOUND`` (also at ``LM_GATE2_PROMPTS``:
    gemma3 and hymba across their windows, xlstm over a padded second
-   chunk). Gate 3: the full models in bf16 (``LM_SERVE``), the decode
+   chunk). Gate 3: the models at full width, ``LM_CUT``'s depth, in bf16
+   (``LM_SERVE``), the decode
    loop under ``torch.cuda.set_sync_debug_mode("error")`` with every cache
    leaf (recurrent state tuples and whisper's ``enc_out`` included)
    keeping its storage. Each gate also catches a planted fault: logits
@@ -161,7 +162,8 @@ Phases (any failure exits non-zero before the result lines):
    under ``build/lm_mesh``), each holding the whole model (seeded) and its
    own block of the cache, through ``make_prefill_step`` /
    ``make_serve_step`` with ``rules=MeshRules.for_mesh(DeviceMesh)``, bf16,
-   uncut (``LM_MESH``): ``gemma3-1b`` 4 × 1 024 + 64 greedy tokens with a
+   at full width and one layer period deep (``LM_MESH``, ``LM_MESH_CUT``):
+   ``gemma3-1b`` 4 × 1 024 + 64 greedy tokens with a
    2 048 cache (its one kv head splits the buffers: the flash-decoding
    combine every decode step) and ``granite-moe-3b-a800m`` 4 × 512 + 32 at
    capacity 8.0 (expert parallelism over ``all_to_all_single`` in prefill,
@@ -181,6 +183,28 @@ Phases (any failure exits non-zero before the result lines):
    the single-device cache's, the census of one decode step (collectives
    and the largest operand; and of a prefill, for granite), beside the
    card's line.
+   In the same four ranks, LM training on a mesh (phase 3i): a second
+   ``DeviceMesh`` of ``LM_MESH_TRAIN_SHAPE`` = (2, 2) over them, each rank
+   holding its blocks of the params, master and moments. Gate 1 (fp32,
+   ``qwen3-0.6b`` and ``granite-moe-3b-a800m`` at ``LM_CUT`` and full
+   width, 8 × 64, a clip that binds): two steps after two warm ones,
+   held to rank 0's single-device replay from the gathered warm state —
+   loss
+   and params, master, m, v within ``LM_TRAIN_CARD_CPU_REL``, a leaf
+   beyond it no farther from a float64 replay than the single device plus
+   the band; grad norm within ``LM_MESH_TRAIN_NORM_REL`` —, replicated
+   leaves bit for bit on every rank, granite's ``all_to_all_single`` in
+   every rank's census; for qwen3 two planted faults (the data-parallel
+   sum left out, every leaf counted on every rank in the clip norm) must
+   move the grad norm out of gate 1's band, and the elastic restore:
+   saved on (2, 2), restored on (1, 4), its next step within the band of
+   (2, 2)'s. Gate 2: bf16 ``qwen3-0.6b`` at ``LM_CUT``, 8 × 512, three
+   steps from one curated window (``gain_eval`` on the card on every rank,
+   the same picks), losses within ``LM_MESH_TRAIN_BF16_REL`` of the single
+   device's. On 3h's NCCL rank, ``train(mesh=(1, 1))`` two fp32 steps bit
+   for bit ``train(mesh=None)``. Reported per rank: ms per step, state
+   bytes against the whole, a step's census, peak memory, ``gain_eval``
+   launches, and each part's seconds.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -1689,7 +1713,9 @@ LM_SERVE = {"qwen3-0.6b": (8, 512, 64), "gemma3-1b": (4, 600, 64),
 #: Gates 1–2's models: one period of the layer pattern (gemma3's five
 #: local layers and its global one; xlstm's seven mLSTM and one sLSTM;
 #: hymba's full-attention layer and a sliding one; whisper's two encoder
-#: and two decoder layers).
+#: and two decoder layers). Gate 3 runs at this depth too (at the
+#: published widths, batches, prompts and token counts), to give phase 3i
+#: its time inside the script's limit.
 LM_CUT = {"qwen3-0.6b": dict(num_layers=2), "gemma3-1b": dict(num_layers=6),
           "granite-moe-3b-a800m": dict(num_layers=2),
           "whisper-small": dict(num_layers=2, encoder_layers=2),
@@ -1963,7 +1989,7 @@ def _slstm_share(model, prefill, batch) -> tuple:
 
 
 def lm_serve_full(cfg, B, S, N) -> dict:
-    """Gate 3 and the report: the full model in bf16, prefill of B × S,
+    """Gate 3 and the report: the model in bf16, prefill of B × S,
     then N − 1 greedy steps under ``set_sync_debug_mode("error")``; every
     cache leaf (tuples' leaves and whisper's ``enc_out`` too) keeps its
     storage. A planted host read in the loop must raise, and a planted
@@ -2098,9 +2124,9 @@ def phase_lm_serving() -> dict:
         log(f"    gate 2, decode = forward ({dcut.num_layers} layers, fp32"
             f"{', capacity 8.0' if cut.family == 'moe' else ''}): "
             f"{lm_gate_decode_vs_forward(dcut)}")
-        r = lm_serve_full(cfg, B, S, N)
-        log(f"    gate 3, bf16 full depth: {N - 1} decode steps under the "
-            f"sync debug mode, cache storage kept; both planted faults "
+        r = lm_serve_full(replace(cfg, **LM_CUT[arch]), B, S, N)
+        log(f"    gate 3, bf16 at LM_CUT's depth: {N - 1} decode steps under "
+            f"the sync debug mode, cache storage kept; both planted faults "
             f"caught")
         log(f"    report: {json.dumps(r)} ({time.perf_counter() - t0:.1f} s)")
         out[arch] = r
@@ -2108,7 +2134,7 @@ def phase_lm_serving() -> dict:
 
 
 #: Phase 3h, LM serving on a mesh of ``LM_MESH_SHAPE`` (data, model) gloo
-#: ranks on the one card, bf16, each configuration uncut: (batch, prompt,
+#: ranks on the one card, bf16, each at full width: (batch, prompt,
 #: greedy tokens, cache length, MoE capacity). gemma3's one kv head does not
 #: divide the model axis, so its caches split along the buffer (the 512-slot
 #: ring and the 2 048-slot global layers both divide by 4) and decode runs
@@ -2123,6 +2149,12 @@ def phase_lm_serving() -> dict:
 LM_MESH = {"gemma3-1b": (4, 1024, 64, 2048, None),
            "granite-moe-3b-a800m": (4, 512, 32, 544, 8.0)}
 LM_MESH_SHAPE = (1, 4)
+#: 3h's depth, cut to one period of each layer pattern, the cuts of
+#: ``LM_CUT`` (gemma3's five local layers and its global one; granite's two
+#: MoE layers), to give phase 3i the time it takes inside the script's
+#: limit; widths, batches, prompts, tokens and caches stay as they were.
+LM_MESH_CUT = {"gemma3-1b": LM_CUT["gemma3-1b"],
+               "granite-moe-3b-a800m": LM_CUT["granite-moe-3b-a800m"]}
 #: The mesh against the single-device path on the card, bf16: each step's
 #: last-position logits within 1/16 of their max |value| (the port's bf16
 #: serving band, ``tests/test_torch_lm_serve.py``'s ``REL_BF16``); tokens
@@ -2152,7 +2184,7 @@ def _lm_mesh_setup(arch, B, S, capacity):
     from repro_torch.models.model import init_model
 
     torch.cuda.set_device(0)
-    cfg = get_config(arch)
+    cfg = replace(get_config(arch), **LM_MESH_CUT[arch])
     if capacity is not None:
         cfg = replace(cfg, moe_capacity=capacity)
     model = init_model(cfg, 0, device="cuda")
@@ -2298,6 +2330,9 @@ def lm_mesh_ranks(rank, world, data):
                                  capacity)
         torch.cuda.empty_cache()
         out[arch]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = lm_mesh_train_rank(rank, world)        # phase 3i
+    out["train_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2323,11 +2358,15 @@ def lm_mesh_nccl_rank(rank, world, arch, B, S, capacity):
         torch.cuda.synchronize()
         t_prefill = time.perf_counter() - t0
         make_prefill_step(cfg, S + 1)(model, {"tokens": prompts})
-    return {"ep": ep_applicable(cfg, rules, B, S),
-            "ep_vs_dense": _ep_vs_dense(model, rules, B, S),
-            "collectives": c.summary()["collectives"],
-            "prefill_ms": t_prefill * 1e3,
-            "compare": _mesh_vs_one(tap.rows[:1], tap.rows[1:], tok)}
+    r = {"ep": ep_applicable(cfg, rules, B, S),
+         "ep_vs_dense": _ep_vs_dense(model, rules, B, S),
+         "collectives": c.summary()["collectives"],
+         "prefill_ms": t_prefill * 1e3,
+         "compare": _mesh_vs_one(tap.rows[:1], tap.rows[1:], tok)}
+    del model
+    torch.cuda.empty_cache()
+    r["train"] = lm_mesh_train_nccl(world)                 # phase 3i
+    return r
 
 
 def phase_lm_mesh() -> dict:
@@ -2343,9 +2382,10 @@ def phase_lm_mesh() -> dict:
     out = {}
     t0 = time.perf_counter()
     worlds = spawn_local(lm_mesh_ranks, world, store_dir=store,
-                         backend="gloo", timeout=900, args=(data,))
-    log(f"  {world} gloo ranks on cuda:0, both configurations: "
-        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+                         backend="gloo", timeout=1000, args=(data,))
+    log(f"  {world} gloo ranks on cuda:0, both configurations and phase "
+        f"3i: {time.perf_counter() - t0:.1f} s with the ranks' start (3i "
+        f"{worlds[0]['train_seconds']:.1f} s of it)")
     for arch, (B, S, N, cache_len, capacity) in LM_MESH.items():
         ranks = [w[arch] for w in worlds]
         r0 = ranks[0]
@@ -2403,7 +2443,535 @@ def phase_lm_mesh() -> dict:
         f"{r['prefill_ms']:.2f} ms; {time.perf_counter() - t0:.1f} s with "
         f"its start; card: {card}")
     out["nccl"] = r
+    out["gain_eval_launches"] = report_lm_mesh_train(worlds, r["train"])
     return out
+
+
+#: Phase 3i, LM training on a mesh, run inside phase 3h's world: a second
+#: ``DeviceMesh`` of ``LM_MESH_TRAIN_SHAPE`` (data, model) over the same
+#: four gloo ranks on cuda:0, every rank holding its blocks of the params,
+#: master and moments. Gate 1: these configurations at ``LM_CUT`` and full
+#: width in fp32 (granite at capacity 8.0, which drops nothing), B × S of
+#: ``LM_MESH_TRAIN_BATCH``, two steps after two warm ones on the compared
+#: batches' tokens shuffled (gate 1 of 3g: a row with no gradient history
+#: moves by lr·sign(g)), with a clip that binds (``LM_MESH_TRAIN_OPT``).
+LM_MESH_TRAIN_GATE1 = ("qwen3-0.6b", "granite-moe-3b-a800m")
+LM_MESH_TRAIN_SHAPE = (2, 2)
+LM_MESH_TRAIN_BATCH = (8, 64)
+LM_MESH_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10,
+                         grad_clip=0.1)
+#: Gate 2: qwen3-0.6b at ``LM_CUT`` in bf16, B × S = 8 × 512, three steps
+#: from one curated window of 256 rows (64 kept, ``gain_eval`` on the
+#: ``cuda`` backend); the losses against the single-device path's within
+#: the bf16 policy's 5e-2 relative (``POLICY_TOLS``).
+LM_MESH_TRAIN_GATE2 = dict(arch="qwen3-0.6b", B=8, S=512, steps=3,
+                           window=256, select=64)
+LM_MESH_TRAIN_BF16_REL = 5e-2
+#: Gate 1's grad norm against the single-device step's: 1e-5 relative
+#: (the norm adds each leaf's squares in one reduction on either side; the
+#: mesh's blocks in rank order).
+LM_MESH_TRAIN_NORM_REL = 1e-5
+
+
+def _mesh_train_cfg(arch, dtype):
+    from repro_torch.configs import get_config, replace
+
+    cfg = replace(get_config(arch), **LM_CUT[arch], dtype=dtype)
+    return replace(cfg, moe_capacity=8.0) if cfg.family == "moe" else cfg
+
+
+def _replicated_bits(state) -> list:
+    """A digest of every replicated leaf's bits (params, master, m, v)."""
+    import hashlib
+
+    import torch
+
+    plan = state["params"].placement
+    h = hashlib.sha256()
+    with torch.no_grad():
+        for n, p in state["params"].named_parameters():
+            if all(phys is None for phys in plan.specs[n]):
+                for t in [p] + [state["opt"][k][n] for k in ("master", "m",
+                                                              "v")]:
+                    h.update(t.detach().cpu().contiguous().view(
+                        torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_bytes(state) -> int:
+    o = state["opt"]
+    return sum(p.numel() * p.element_size()
+               for p in state["params"].parameters()) + sum(
+        t.numel() * 4 for k in ("master", "m", "v") for t in o[k].values())
+
+
+class _NoDataSum:
+    """Planted fault: the backward keeps each data shard's own gradient
+    (the data-parallel sum left out)."""
+
+    def __enter__(self):
+        from repro_torch.distributed import parallel
+
+        self.P, self.real = parallel, parallel._data_reduce
+        parallel._data_reduce = lambda sh, g, dim: (
+            g if dim is None else g.chunk(sh.p, dim)[sh.index].contiguous())
+        return self
+
+    def __exit__(self, *exc):
+        self.P._data_reduce = self.real
+
+
+class _NormPerRank:
+    """Planted fault: every rank counts every leaf in the clip norm (a
+    replicated leaf once per rank)."""
+
+    def __enter__(self):
+        from repro_torch.train import step as St
+
+        self.St, self.real = St, St._first_replica
+        St._first_replica = lambda rules, spec: True
+        return self
+
+    def __exit__(self, *exc):
+        self.St._first_replica = self.real
+
+
+def _mesh_train_gate1(rank, world, rules, arch, store) -> dict:
+    """Gate 1 on one configuration: two warm mesh steps; for qwen3 the two
+    planted faults, one step each on a copy of the warm blocks (the grad
+    norm against the single-device step's); the warm state gathered to
+    rank 0, which replays the next two steps on one device and in float64
+    from it; the two mesh steps (the first timed, the second under the
+    census), gathered to rank 0 and held to its replays. For qwen3 also the elastic
+    restore: the state saved after the two steps, a third step on (2, 2)
+    (its batch the first's tokens shuffled anew, so every row it touches
+    has a history), and the same step restored on (1, 4). ``t`` holds each
+    part's seconds."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis.census import take_census
+    from repro_torch.train import step as St
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cfg = _mesh_train_cfg(arch, "float32")
+    opt = OptimizerConfig(**LM_MESH_TRAIN_OPT)
+    B, S = LM_MESH_TRAIN_BATCH
+    gen = torch.Generator().manual_seed(3)
+    batches = [_train_batch(cfg, B, S, gen, "cuda") for _ in range(2)]
+
+    def shuffled(b):
+        toks = torch.cat([b["tokens"], b["labels"][:, -1:]], 1)
+        perm = torch.randperm(toks.numel(), generator=gen).to("cuda")
+        w = toks.flatten()[perm].view_as(toks)
+        return {"tokens": w[:, :S], "labels": w[:, 1:]}
+
+    warm = [shuffled(b) for b in batches]
+    batches.append(shuffled(batches[0]))
+    lead = int(rules.mesh.mesh.flatten()[0])
+    t, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    state = St.init_train_state(cfg, 0, "cuda", rules=rules)
+    step = St.make_train_step(cfg, opt, rules=rules)
+    lap("init")
+    for b in warm:
+        state, _ = step(state, b)
+    lap("warm steps")
+    r = {"faults": {}}
+    if arch == "qwen3-0.6b":
+        for name, plant in (("no data sum", _NoDataSum),
+                            ("norm per rank", _NormPerRank)):
+            placed = copy.deepcopy(state)
+            with plant():
+                _, mf = step(placed, batches[0])
+            r["faults"][name] = float(mf["grad_norm"])
+            del placed
+        lap("planted faults")
+    whole = St.gather_train_state(state, dst=lead, device="cuda")
+    lap("gather")
+    if whole is not None:
+        r["whole_bytes"] = _state_bytes(whole)
+        ref = _one_device_steps(cfg, opt, whole, batches[:2])
+        r.update({k: ref.pop(k) for k in ("one_losses", "one_norms")})
+        del whole
+    lap("one device and float64")
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    lap("barrier")
+    state, m1 = step(state, batches[0])
+    lap("step")
+    (state, m2), c = take_census(step, state, batches[1])
+    lap("step under the census")
+    s = c.summary()
+    r.update({"ms_per_step": t["step"] * 1e3,
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "losses": [float(m1["loss"]), float(m2["loss"])],
+              "norms": [float(m1["grad_norm"]), float(m2["grad_norm"])],
+              "state_bytes": _state_bytes(state),
+              "replicated": _replicated_bits(state),
+              "census": {k: s[k] for k in ("collectives",
+                                           "max_collective_bytes")}})
+    got = St.gather_train_state(state, dst=lead, device="cuda")
+    if got is not None:
+        one, wide = ref["second"], ref["wide"]
+        r["gaps"] = {"one": _leaf_gaps(got, one),
+                     "f64": _leaf_gaps(got, wide),
+                     "one_f64": _leaf_gaps(one, wide)}
+        del one, wide, got, ref
+    lap("gather and compare")
+    if arch == "qwen3-0.6b":
+        ckpt = CheckpointManager(store / "ckpt", async_write=False)
+        ckpt.save(4, state)
+        lap("save")
+        state, m3 = step(state, batches[2])
+        third = St.gather_train_state(state, dst=lead, device="cuda")
+        lap("third step")
+        rules14 = _mesh_rules_on(world, 1)
+        back, _ = ckpt.restore(state, step=4, device="cuda",
+                               shardings=rules14)
+        del state
+        lap("restore on (1, 4)")
+        back, m14 = St.make_train_step(cfg, opt, rules=rules14)(
+            back, batches[2])
+        r["elastic"] = {"loss": float(m3["loss"]),
+                        "loss_14": float(m14["loss"])}
+        restored = St.gather_train_state(back, dst=lead, device="cuda")
+        if restored is not None:
+            r["elastic"]["gap"] = _state_gap(restored, third)
+        del back, third, restored
+        lap("step on (1, 4)")
+    else:
+        del state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    lap("end barrier")
+    r["t"] = t
+    r["seconds"] = sum(t.values())
+    return r
+
+
+class _deterministic:
+    """``torch.use_deterministic_algorithms(True)`` for a block (cuBLAS's
+    workspace set as it requires), restored after."""
+
+    def __enter__(self):
+        import os
+
+        import torch
+
+        self.prev = torch.are_deterministic_algorithms_enabled()
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self.prev)
+
+
+def _one_device_steps(cfg, opt, whole, batches) -> dict:
+    """Rank 0: the steps on one device from the gathered warm state, and
+    again in float64 (the optimizer's state stays fp32); the losses and
+    norms, and both states after the last step, on the card."""
+    import torch
+
+    from repro_torch.configs import replace
+    from repro_torch.train.step import make_train_step
+
+    wide_cfg = replace(cfg, dtype="float64")
+    out = {"one_losses": [], "one_norms": [], "wide_cfg": wide_cfg}
+    for key, c in (("second", cfg), ("wide", wide_cfg)):
+        st = _state_on(c, whole, "cuda")
+        step = make_train_step(c, opt)
+        for b in batches:
+            st, m = step(st, b)
+            if c is cfg:
+                out["one_losses"].append(float(m["loss"]))
+                out["one_norms"].append(float(m["grad_norm"]))
+        out[key] = st
+    return out
+
+
+def _mesh_train_gate2(rank, rules) -> dict:
+    """Gate 2: bf16 qwen3 on three batches of one curated window; every
+    rank curates the window on the card (its picks and ``gain_eval``
+    launches reported); rank 0 replays the steps on one device."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import EvalConfig
+    from repro_torch.data.pipeline import CurationConfig, token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.train import step as St
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    g = LM_MESH_TRAIN_GATE2
+    cfg = _mesh_train_cfg(g["arch"], "bfloat16")
+    opt = OptimizerConfig(**LM_MESH_TRAIN_OPT)
+    t, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    ops.LAUNCHES.clear()
+    with _CurationTap() as tap:
+        batches = list(token_batches(
+            cfg.vocab_size, g["B"], g["S"], g["steps"], seed=7,
+            curation=CurationConfig(window=g["window"], select=g["select"]),
+            eval_cfg=EvalConfig(backend="cuda"), device="cuda"))
+    launches = ops.LAUNCHES.get("gain_eval", 0)
+    picks = [list(map(int, w["indices"])) for w in tap.windows]
+    lap("curation")
+    state = St.init_train_state(cfg, 0, "cuda", rules=rules)
+    step = St.make_train_step(cfg, opt, rules=rules)
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    lap("init")
+    losses, times = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t1) * 1e3)
+    lap("steps")
+    r = {"losses": losses, "ms_per_step": times,
+         "peak_bytes": torch.cuda.max_memory_allocated(),
+         "picks": picks, "windows": len(picks), "gain_eval": launches,
+         "state_bytes": _state_bytes(state)}
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = St.init_train_state(cfg, 0, "cuda")
+        r["whole_bytes"] = _state_bytes(one)
+        step1 = St.make_train_step(cfg, opt)
+        r["one_losses"] = []
+        for b in batches:
+            one, m = step1(one, b)
+            r["one_losses"].append(float(m["loss"]))
+        del one
+        torch.cuda.empty_cache()
+    lap("one device")
+    dist.barrier()
+    lap("end barrier")
+    r["t"] = t
+    r["seconds"] = sum(t.values())
+    return r
+
+
+def lm_mesh_train_rank(rank, world) -> dict:
+    """Phase 3i on one gloo rank of 3h's world: a (2, 2) mesh over the
+    same ranks, gates 1 and 2 (the elastic restore within gate 1)."""
+    import torch
+
+    data, _ = LM_MESH_TRAIN_SHAPE
+    rules = _mesh_rules_on(world, data)
+    store = ROOT / "build" / "lm_mesh"
+    out = {}
+    for arch in LM_MESH_TRAIN_GATE1:
+        out[arch] = _mesh_train_gate1(rank, world, rules, arch, store)
+        torch.cuda.empty_cache()
+    out["gate2"] = _mesh_train_gate2(rank, rules)
+    return out
+
+
+def lm_mesh_train_nccl(world) -> dict:
+    """Phase 3i on 3h's NCCL rank: ``train(mesh=(1, 1))`` two fp32 steps
+    against ``train(mesh=None)``, bit for bit (deterministic algorithms, as
+    3g's crash-resume gate)."""
+    import torch
+
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.step import gather_train_state
+    from repro_torch.train.trainer import TrainConfig, train
+
+    arch = LM_MESH_TRAIN_GATE1[0]
+    cfg = _mesh_train_cfg(arch, "float32")
+    opt = OptimizerConfig(**LM_MESH_TRAIN_OPT)
+    B, S = LM_MESH_TRAIN_BATCH
+    gen = torch.Generator().manual_seed(3)
+    batches = [_train_batch(cfg, B, S, gen, "cuda") for _ in range(2)]
+    with _deterministic():
+        rules = _mesh_rules_on(world, 1)
+        t0 = time.perf_counter()
+        s_mesh, h_mesh = train(cfg, TrainConfig(steps=2, log_every=1), opt,
+                               iter(batches), mesh=rules.mesh, device="cuda")
+        t_mesh = time.perf_counter() - t0
+        s_mesh = gather_train_state(s_mesh, device="cuda")
+        s_one, h_one = train(cfg, TrainConfig(steps=2, log_every=1), opt,
+                             iter(batches), device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(
+        s_mesh["params"].parameters(), s_one["params"].parameters()))
+    for k in ("master", "m", "v"):
+        same &= all(torch.equal(s_mesh["opt"][k][n], t)
+                    for n, t in s_one["opt"][k].items())
+    return {"same": same, "losses": [h["loss"] for h in h_mesh],
+            "one_losses": [h["loss"] for h in h_one],
+            "seconds": t_mesh}
+
+
+def lm_mesh_train_ranks(rank, world):
+    """Phase 3i alone on one gloo rank (see :func:`phase_lm_mesh_train`)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    out = {"train": lm_mesh_train_rank(rank, world)}
+    out["train_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lm_mesh_train_nccl_rank(rank, world):
+    import torch
+
+    torch.cuda.set_device(0)
+    return {"train": lm_mesh_train_nccl(world)}
+
+
+def phase_lm_mesh_train() -> list:
+    """Phase 3i alone, in a world of its own (the whole script runs it
+    inside phase 3h's, :func:`phase_lm_mesh`); returns ``gain_eval``'s
+    launches per rank."""
+    from repro_torch.core.distributed import spawn_local
+
+    store = ROOT / "build" / "lm_mesh"
+    store.mkdir(parents=True, exist_ok=True)
+    world = LM_MESH_SHAPE[0] * LM_MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    worlds = spawn_local(lm_mesh_train_ranks, world, store_dir=store,
+                         backend="gloo", timeout=900)
+    log(f"  {world} gloo ranks on cuda:0, phase 3i: "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    (r,) = spawn_local(lm_mesh_train_nccl_rank, 1, store_dir=store,
+                       backend="nccl", timeout=600)
+    return report_lm_mesh_train(worlds, r["train"])
+
+
+def report_lm_mesh_train(worlds, nccl) -> list:
+    """Phase 3i's report and gates on every rank's results: logs every
+    line first, then raises naming each gate that failed. Returns
+    ``gain_eval``'s launches per rank."""
+    import math
+
+    card = card_line()
+    ranks = [w["train"] for w in worlds]
+    band, nband = LM_TRAIN_CARD_CPU_REL, LM_MESH_TRAIN_NORM_REL
+    B, S = LM_MESH_TRAIN_BATCH
+    failed = []
+
+    def gate(ok, what):
+        if not ok:
+            failed.append(what)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for arch in LM_MESH_TRAIN_GATE1:
+        rs = [r[arch] for r in ranks]
+        r0 = rs[0]
+        g = r0["gaps"]
+        err, leaf = max((e, lf) for lf, e in g["one"].items())
+        # a leaf out of the band must be no farther from the float64
+        # replay than the single-device step is, plus the band
+        beyond = {lf: (e, g["f64"][lf], g["one_f64"][lf])
+                  for lf, e in g["one"].items() if e > band}
+        log(f"  [3i] {arch} (LM_CUT, fp32) on {LM_MESH_TRAIN_SHAPE} gloo "
+            f"ranks, B {B} x {S}, 2 steps after 2 warm: losses "
+            f"{r0['losses']} (single device {r0['one_losses']}), grad norms "
+            f"{r0['norms']} (single device {r0['one_norms']}, clip "
+            f"{LM_MESH_TRAIN_OPT['grad_clip']}); params, master, m, v worst "
+            f"{leaf} {err:.3e} = {err / band:.3f} of the band; against the "
+            f"float64 replay: mesh {max(g['f64'].values()) / band:.3f}, "
+            f"single device {max(g['one_f64'].values()) / band:.3f} of it")
+        for lf, (e, ef, eo) in beyond.items():
+            log(f"    {lf}: {e / band:.3f} of the band from the single "
+                f"device; from the float64 replay the mesh "
+                f"{ef / band:.3f}, the single device {eo / band:.3f}")
+            gate(ef <= eo + band, f"{arch}: {lf} out of the band and "
+                                  f"farther from the float64 replay than "
+                                  f"the single device")
+        for q, r in enumerate(rs):
+            gate(r["losses"] == r0["losses"]
+                 and r["replicated"] == r0["replicated"],
+                 f"{arch}: rank {q}'s losses or replicated leaves differ "
+                 f"from rank 0's")
+        gate(all(rel(a, b) <= band for a, b in zip(r0["losses"],
+                                                    r0["one_losses"])),
+             f"{arch}: losses out of the band")
+        gate(all(rel(a, b) <= nband for a, b in zip(r0["norms"],
+                                                     r0["one_norms"])),
+             f"{arch}: grad norms out of {nband}")
+        gate(min(r0["one_norms"]) > LM_MESH_TRAIN_OPT["grad_clip"],
+             f"{arch}: the clip does not bind")
+        for name, norm in r0["faults"].items():
+            nerr = rel(norm, r0["one_norms"][0])
+            log(f"    planted {name}: grad norm {norm:.6f} against "
+                f"{r0['one_norms'][0]:.6f}, {nerr / nband:.1f}x the norm "
+                f"band ({nerr / band:.1f}x gate 1's)")
+            gate(nerr > band, f"{arch}: the bands miss the planted {name}")
+        if "elastic" in r0:
+            e = r0["elastic"]
+            eerr, eleaf = e["gap"]
+            log(f"    elastic: saved on (2, 2) after the two steps, "
+                f"restored on (1, 4): its next step worst {eleaf} "
+                f"{eerr:.3e} = {eerr / band:.3f} of the band (loss "
+                f"{e['loss_14']:.6f} vs {e['loss']:.6f})")
+            gate(eerr <= band and rel(e["loss_14"], e["loss"]) <= band,
+                 f"{arch}: the step restored on (1, 4) is out of the band")
+        if "moe" in arch:
+            a2a = [r["census"]["collectives"].get("alltoall_base_", 0)
+                   for r in rs]
+            gate(all(a2a), f"{arch}: all_to_all_single missing on a rank")
+        for q, r in enumerate(rs):
+            log(f"    rank {q}: {r['ms_per_step']:.1f} ms/step, state "
+                f"{r['state_bytes']} B of the whole {r0['whole_bytes']} B, "
+                f"peak {r['peak_bytes'] / 1e9:.2f} GB, a step's census "
+                f"{json.dumps(r['census'])}; {r['seconds']:.1f} s "
+                f"{json.dumps({k: round(v, 1) for k, v in r['t'].items()})};"
+                f" card: {card}")
+    g = [r["gate2"] for r in ranks]
+    g0 = g[0]
+    c = LM_MESH_TRAIN_GATE2
+    log(f"  [3i] gate 2: {c['arch']} (LM_CUT, bf16), {c['B']} x {c['S']}, "
+        f"{c['steps']} steps from one curated window of {c['window']} "
+        f"(gain_eval on the card): losses {g0['losses']} (single device "
+        f"{g0['one_losses']}, band {LM_MESH_TRAIN_BF16_REL} relative)")
+    for q, r in enumerate(g):
+        log(f"    rank {q}: {json.dumps([round(x, 1) for x in r['ms_per_step']])}"
+            f" ms/step, state {r['state_bytes']} B of the whole "
+            f"{g0['whole_bytes']} B, peak {r['peak_bytes'] / 1e9:.2f} GB, "
+            f"gain_eval launches {r['gain_eval']}; {r['seconds']:.1f} s "
+            f"{json.dumps({k: round(v, 1) for k, v in r['t'].items()})}; "
+            f"card: {card}")
+        gate(r["picks"] == g0["picks"] and r["losses"] == g0["losses"],
+             f"gate 2: rank {q}'s picks or losses differ from rank 0's")
+        gate(r["windows"] == 1 and r["gain_eval"] > 0,
+             f"gate 2: rank {q}: {r['windows']} windows, {r['gain_eval']} "
+             f"gain_eval launches")
+    gate(all(math.isfinite(a) and rel(a, b) <= LM_MESH_TRAIN_BF16_REL
+             for a, b in zip(g0["losses"], g0["one_losses"])),
+         "gate 2: losses out of the bf16 band")
+    log(f"  [3i] 1 NCCL rank: train(mesh=(1, 1)) 2 fp32 steps, losses "
+        f"{nccl['losses']} (train(mesh=None) {nccl['one_losses']}), the "
+        f"state bit for bit: {nccl['same']}; {nccl['seconds']:.1f} s; card: "
+        f"{card}")
+    gate(nccl["same"] and nccl["losses"] == nccl["one_losses"],
+         "NCCL: train(mesh=(1, 1)) differs from train(mesh=None)")
+    if failed:
+        raise AssertionError("phase 3i: " + "; ".join(failed))
+    return [r["gain_eval"] for r in g]
 
 
 #: Phase 3g, LM training with curation. Gate 1 (card = CPU port, fp32 at
@@ -2503,13 +3071,22 @@ def _state_gap(got, want, parts=("params", "opt/master", "opt/m",
     of two train states (a leaf: a reference path, its layers together),
     computed in float64 on the card, and its leaf; the steps
     must be equal."""
+    return max(((e, leaf) for leaf, e in _leaf_gaps(got, want,
+                                                    parts).items()),
+               default=(0.0, ""))
+
+
+def _leaf_gaps(got, want, parts=("params", "opt/master", "opt/m",
+                                 "opt/v")) -> dict:
+    """``{leaf: max|got − want| / max|want|}`` as :func:`_state_gap`
+    computes it."""
     import torch
 
     if int(got["opt"]["step"]) != int(want["opt"]["step"]):
         raise AssertionError(f"steps differ: {int(got['opt']['step'])} vs "
                              f"{int(want['opt']['step'])}")
     dev = "cuda"
-    worst = (0.0, "")
+    out = {}
     with torch.no_grad():
         for part in parts:
             g, w = _named(got, part), _named(want, part)
@@ -2520,9 +3097,8 @@ def _state_gap(got, want, parts=("params", "opt/master", "opt/m",
                     err = max(err, float((a.to(dev).double() - b).abs()
                                          .max()))
                     scale = max(scale, float(b.abs().max()))
-                worst = max(worst, (err / (scale or 1.0),
-                                    f"/{part}/{'/'.join(path)}"))
-    return worst
+                out[f"/{part}/{'/'.join(path)}"] = err / (scale or 1.0)
+    return out
 
 
 def _update_gap(state, master_before: dict, lr: float, step: int,
@@ -2688,7 +3264,6 @@ def lm_train_gate_equivalences(cut) -> str:
     checkpoint at 2 and a resume) = 4 straight steps bit for bit, under
     ``torch.use_deterministic_algorithms(True)``; a resume that leaves m and
     v at zero must differ."""
-    import os
     import shutil
 
     import torch
@@ -2722,10 +3297,7 @@ def lm_train_gate_equivalences(cut) -> str:
                  f"(bound {LM_TRAIN_MICROBATCH_BOUND})")
     del one, four
 
-    prev = torch.are_deterministic_algorithms_enabled()
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True)
-    try:
+    with _deterministic():
         a, b = _state_on(cut, base, dev), _state_on(cut, base, dev)
         make_train_step(cut, opt, remat=True)(a, batch)
         make_train_step(cut, opt, remat=False)(b, batch)
@@ -2789,8 +3361,6 @@ def lm_train_gate_equivalences(cut) -> str:
                      f"checkpoints)")
         del bad, straight
         shutil.rmtree(d, ignore_errors=True)
-    finally:
-        torch.use_deterministic_algorithms(prev)
     return "; ".join(parts)
 
 
@@ -3770,14 +4340,20 @@ def main() -> int:
         f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none); phase "
         f"{time.perf_counter() - t0:.1f} s")
     log(f"[3h] LM serving on a mesh ({', '.join(LM_MESH)}; "
-        f"{LM_MESH_SHAPE} gloo ranks on cuda:0, then one NCCL rank; bf16)")
+        f"{LM_MESH_SHAPE} gloo ranks on cuda:0, then one NCCL rank; bf16), "
+        f"and [3i] LM training on a {LM_MESH_TRAIN_SHAPE} mesh over the "
+        f"same ranks")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ops.LAUNCHES.clear()
-    phase_lm_mesh()
+    mesh_train_launches = phase_lm_mesh()["gain_eval_launches"]
     log(f"    launches of the port's kernels in this process: "
-        f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none); phase "
+        f"{json.dumps(dict(ops.LAUNCHES))} (the LM path has none; 3i's "
+        f"ranks launched gain_eval {mesh_train_launches}); phase "
         f"{time.perf_counter() - t0:.1f} s")
+    if not all(mesh_train_launches):
+        raise AssertionError("the LM mesh training path launched no "
+                             "gain_eval on a rank")
     peaks = peaks_for(torch.cuda.get_device_name(0))
     log(f"[3g] LM training with curation ({LM_TRAIN_FULL['arch']} at full "
         f"width, bf16; gates 1-2 at LM_CUT, fp32)")
@@ -3827,7 +4403,9 @@ def main() -> int:
             # launches in the contract phase (3e)
             "audit_launches": audit_launches.get(name, 0),
             # launches over phase 3g's train() (curated qwen3-0.6b)
-            **({"train_launches": train_report["gain_eval_launches"]}
+            **({"train_launches": train_report["gain_eval_launches"],
+                # per rank of phase 3i's curated window on the mesh
+                "mesh_train_launches": mesh_train_launches}
                if name == "gain_eval" else {}),
             # per rank of the mesh phase (3d), for the kernels it runs
             **({"mesh_launches": [mesh_launches[q].get(name, 0)

@@ -206,8 +206,9 @@ def lm_train_state_tree(state: dict) -> dict:
     def stacked(named):
         tree: dict = {}
         for path, ts in lm_ref_leaves(named).items():
-            leaf = torch.stack(ts) if path[0] == "groups" else ts[0]
-            put_path(tree, path, leaf.detach().to("cpu", copy=True))
+            group = path[0] == "groups"     # the stack is a copy already
+            leaf = torch.stack(ts) if group else ts[0]
+            put_path(tree, path, leaf.detach().to("cpu", copy=not group))
         return tree
 
     opt = state["opt"]

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.distributed import gather_cat, gather_shards
+from repro_torch.distributed.parallel import copy_in, sum_out
 
 NEG_INF = -2.0e38
 
@@ -167,7 +168,7 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
               mode: str = "train", pos_offset: int = 0,
               cache: Optional[dict] = None, cache_len: Optional[int] = None,
               cross_x: Optional[torch.Tensor] = None, rules=None,
-              kv_dim: Optional[int] = None):
+              kv_dim: Optional[int] = None, tp=None):
     """Self- or cross-attention. Returns (y, cache | None).
 
     ``prefill`` writes position p of the prompt at slot ``p % buf`` of
@@ -187,7 +188,15 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
     buffer: decode runs :func:`_decode_attn_seqshard`) or 2 (the kv heads:
     :func:`_decode_attn_heads`). ``train.step.cache_dims_tree`` makes that
     choice.
+
+    ``tp`` (train mode, ``p`` a placed layer's
+    :class:`~repro_torch.models.placed.PlacedTree`): the model axis's
+    shards when the heads are split over it — :func:`_attention_tp`.
     """
+    if tp is not None and mode == "train":
+        return _attention_tp(p, cfg, x, tp, mask_kind=mask_kind,
+                             window=window, theta=theta,
+                             cross_x=cross_x), None
     B, S, _ = x.shape
     h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // hk
@@ -218,15 +227,8 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
         k = rope(k, q_pos, theta)
 
     if mode in ("train", "prefill"):
-        kv_len = k.shape[1]
-        kv_pos = (torch.arange(kv_len, dtype=torch.int32, device=dev)
-                  if is_cross else q_pos)
-        if S >= _BLOCK_Q_THRESHOLD and S % _BLOCK_Q == 0:
-            out = _sdpa_blocked(q, k, v, kv_pos, mask_kind, window, g)
-        else:
-            bias = _mask_bias(mode, mask_kind, S, kv_len, q_pos, kv_pos,
-                              None, window)
-            out = _sdpa(q, k, v, bias, g)
+        out = _attend_full(q, k, v, q_pos, mode, mask_kind, window, g,
+                           is_cross)
         if mode == "prefill" and kv_dim is not None:
             _prefill_block(k, v, cache, mask_kind, window,
                            rules.shards(("model",)), kv_dim)
@@ -256,6 +258,66 @@ def attention(p, cfg, x, *, mask_kind: str = "causal",
 
     y = out.reshape(B, S, h * hd) @ p["wo"].reshape(h * hd, -1)
     return y, cache
+
+
+def _attend_full(q, k, v, q_pos, mode: str, mask_kind: str, window,
+                 g: int, is_cross: bool):
+    """Every query against the whole K/V (train and prefill)."""
+    S, kv_len = q.shape[1], k.shape[1]
+    kv_pos = (torch.arange(kv_len, dtype=torch.int32, device=q.device)
+              if is_cross else q_pos)
+    if S >= _BLOCK_Q_THRESHOLD and S % _BLOCK_Q == 0:
+        return _sdpa_blocked(q, k, v, kv_pos, mask_kind, window, g)
+    bias = _mask_bias(mode, mask_kind, S, kv_len, q_pos, kv_pos, None,
+                      window)
+    return _sdpa(q, k, v, bias, g)
+
+
+def _attention_tp(p, cfg, x, sh, *, mask_kind: str, window, theta,
+                  cross_x):
+    """Train-mode attention with the heads split over the model axis
+    (Megatron's column- and row-split products): this rank projects its
+    block of the q heads (``wq``'s model block) and the kv heads they read
+    — ``wk``/``wv``'s model block when the kv heads split too, else those
+    heads of the leaf gathered whole —, attends with them, and multiplies
+    by its rows of ``wo``; the ranks' partial outputs are added over the
+    model group in shard order. The input (and ``cross_x``) enters through
+    :func:`copy_in`, so its gradient adds the ranks' parts; leaves read
+    whole inside the region (the kv projections when they do not split,
+    the q/k norms) add their gradients over the model axis."""
+    B, S, _ = x.shape
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // hk
+    h_loc = h // sh.p
+    lo = sh.index * h_loc
+    klo, khi = lo // g, (lo + h_loc - 1) // g + 1
+    pp = p.partitioned()
+    is_cross = cross_x is not None
+    xi = copy_in(sh, x)
+    src = copy_in(sh, cross_x) if is_cross else xi
+    q = _proj_heads(xi, p.block("wq"))
+    if p.model_dim("wk") == 1:       # the kv heads split as the q heads do
+        wk, wv = p.block("wk"), p.block("wv")
+    else:
+        wk, wv = pp["wk"][:, klo:khi], pp["wv"][:, klo:khi]
+    k, v = _proj_heads(src, wk), _proj_heads(src, wv)
+    if "q_norm" in p:
+        q = rms_norm(pp["q_norm"], q, cfg.norm_eps)
+        if not is_cross:
+            k = rms_norm(pp["k_norm"], k, cfg.norm_eps)
+    q_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    if not is_cross:
+        theta = cfg.rope_theta if theta is None else theta
+        q = rope(q, q_pos, theta)
+        k = rope(k, q_pos, theta)
+    # each local q head's kv head (``_repeat_kv``'s grouping)
+    idx = (torch.arange(lo, lo + h_loc, device=x.device) // g) - klo
+    k, v = k[:, :, idx], v[:, :, idx]
+    out = _attend_full(q, k, v, q_pos, "train",
+                       "cross" if is_cross else mask_kind, window, 1,
+                       is_cross)
+    y = out.reshape(B, S, h_loc * hd) @ p.block("wo").reshape(h_loc * hd, -1)
+    return sum_out(sh, y)
 
 
 def _decode_self(q, k, v, cache, pos_offset: int, mask_kind: str, g: int):
@@ -420,13 +482,23 @@ def _act(name: str):
             "relu": F.relu}[name]
 
 
-def mlp(p, x, act: str):
-    up = x @ p["w_up"]
-    if "w_gate" in p:
-        h = _act(act)(x @ p["w_gate"]) * up
+def mlp(p, x, act: str, tp=None):
+    """``tp`` (train mode, ``p`` a placed layer's tree): the model axis's
+    shards when ``d_ff`` is split over it — ``w_up``/``w_gate`` are
+    column-split (this rank's ``d_ff`` block), ``w_down`` row-split, the
+    partial outputs added over the model group in shard order."""
+    if tp is not None:
+        x = copy_in(tp, x)
+        up = x @ p.block("w_up")
+        gate = x @ p.block("w_gate") if "w_gate" in p else None
+        down = p.block("w_down")
     else:
-        h = _act(act)(up)
-    return h @ p["w_down"]
+        up = x @ p["w_up"]
+        gate = x @ p["w_gate"] if "w_gate" in p else None
+        down = p["w_down"]
+    h = _act(act)(up) if gate is None else _act(act)(gate) * up
+    y = h @ down
+    return y if tp is None else sum_out(tp, y)
 
 
 # ---------------------------------------------------------------------------

@@ -29,16 +29,31 @@ so the two can be compared leaf by leaf.
 On a mesh (``rules``: a :class:`~repro_torch.distributed.sharding.MeshRules`
 on a ``DeviceMesh``) every rank runs :func:`forward` with the whole
 batch. It keeps its own rows (split over the data axes when the batch
-divides them), holds its own block of each cache leaf (the placement of
-``train.step.cache_dims_tree``: a :class:`MeshCaches`), and returns its
-rows' logits. The weights are whole on every rank and the dense layers
-run on each rank's rows as they do on one device; the collectives are
-the two regions of the reference's mesh — expert-parallel MoE
+divides them) and returns its rows' logits.
+
+Serving (``prefill``, ``decode``) holds the weights whole on every rank
+and each rank's own block of each cache leaf (the placement of
+``train.step.cache_dims_tree``: a :class:`MeshCaches`); the dense layers
+run on each rank's rows as they do on one device, and the collectives
+are the two regions of the reference's mesh — expert-parallel MoE
 (:mod:`repro_torch.models.moe_ep`) and the sequence-split decode
 (``layers._decode_attn_seqshard``) — the attention heads' outputs where
 the cache is split over its heads, the whole batch's expert counts where
 the dense MoE drops, and, for a recurrent state split over the model
 axis, its blocks gathered for the step (the blocks then keep their part).
+
+Training (``train`` mode on a model placed by :func:`place_model`, the
+rows then always split over the data axes) holds each parameter as this
+rank's block of its leaf (:mod:`repro_torch.models.placed`). Each layer
+gathers its leaves when it runs — again in remat's recompute — and the
+backward adds each leaf's gradient over the ranks that computed it and
+cuts it back to the block (FSDP over the data axes). Attention whose heads
+split over the model axis and MLPs whose ``d_ff`` does are
+tensor-parallel (column-split input products, row-split output products
+added over the model group, ``layers._attention_tp`` and ``layers.mlp``);
+expert-parallel MoE keeps each rank's experts and differentiates through
+its exchanges; every other leaf (the SSM blocks, the embedding and the
+tied head, ``dec_pos``, the norms) is gathered whole.
 """
 from __future__ import annotations
 
@@ -61,6 +76,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe_ep import ep_applicable, moe_ep
 from repro_torch.models.params import dense_init
+from repro_torch.models.placed import PlacedTree, PlacedWeights
 
 ATTN_TYPES = ("attn", "attn_local", "attn_global", "moe")
 HYBRID_TYPES = ("hybrid_full", "hybrid_sw")
@@ -350,6 +366,15 @@ class DecoderLM(nn.Module):
         self.groups = nn.ModuleDict({
             key: nn.ModuleList(ParamTree(t) for t in layers)
             for key, layers in tree["groups"].items()})
+        #: None, or how the parameters are placed on a mesh (each then
+        #: this rank's block of its leaf: :func:`place_model`)
+        self.placement: Optional[PlacedWeights] = None
+
+    def __getitem__(self, k):
+        return getattr(self, k)
+
+    def __contains__(self, k) -> bool:
+        return k in self._modules
 
     def forward(self, batch: dict, **kw):
         return forward(self, batch, **kw)
@@ -370,6 +395,58 @@ def _materialize(spec, gen, dtype, device):
     if spec.init is None or isinstance(spec.init, float):
         return dense_init(gen, spec.shape, dt, scale=spec.init, device=device)
     raise ValueError(f"unknown init {spec.init!r}")
+
+
+def _walk_named(cfg: ModelConfig, fn):
+    """``fn(name, leaf spec)`` over the parameter spec, ``name`` as
+    ``named_parameters()`` names the parameter (``groups.g0_attn.3.attn.wq``),
+    in the spec's tree."""
+    def walk(s, prefix):
+        if isinstance(s, Leaf):
+            return fn(prefix, s)
+        if isinstance(s, list):
+            return [walk(t, f"{prefix}.{i}") for i, t in enumerate(s)]
+        return {k: walk(v, f"{prefix}.{k}" if prefix else k)
+                for k, v in s.items()}
+
+    return walk(param_specs(cfg), "")
+
+
+def named_param_dims(cfg: ModelConfig) -> dict:
+    """``{parameter name: its leaf's dim spec}`` (a group layer's without
+    the stacked layer dim)."""
+    out = {}
+    _walk_named(cfg, lambda name, s: out.__setitem__(name, tuple(s.dims)))
+    return out
+
+
+def model_from_named(cfg: ModelConfig, named: dict) -> DecoderLM:
+    """A :class:`DecoderLM` over ``{parameter name: tensor}`` (whole
+    leaves, used as they are)."""
+    return DecoderLM(cfg, _walk_named(cfg, lambda name, s: named[name]))
+
+
+def place_model(model: DecoderLM, rules: MeshRules) -> DecoderLM:
+    """Cut every parameter of a whole ``model`` to this rank's block of its
+    leaf on ``rules``' mesh (in place; the parameters stay the same
+    objects) and record the placement. A collective on the mesh's first
+    use: every rank places its model in the same order."""
+    if model.placement is not None:
+        raise ValueError("the model is placed already")
+    if not on_mesh(rules):
+        raise ValueError("place_model needs MeshRules on a DeviceMesh")
+    dims = named_param_dims(model.cfg)
+    specs = {}
+    for name, p in model.named_parameters():
+        specs[name] = rules.spec(tuple(p.shape), dims[name])
+        p.data = rules.local(p.data, dims[name]).clone()
+    dp = rules.data_axes
+    data = (rules.shards(dp) if math.prod(rules.shape[a] for a in dp) > 1
+            else None)
+    mdl = rules.shards(("model",)) if rules.shape.get("model", 1) > 1 \
+        else None
+    model.placement = PlacedWeights(rules, specs, data, mdl)
+    return model
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
@@ -403,22 +480,26 @@ def _attn_kind_args(cfg: ModelConfig, kind: str):
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
                 pos_offset: int, cache: Optional[dict],
                 cache_len: Optional[int], cross_x=None, rules=None,
-                place=None, layout=None):
+                place=None, layout=None, name: str = ""):
     """One layer of the given kind. Returns (x, new_cache); in prefill and
     decode the new cache is ``cache``'s tensors, written in place.
 
     On a mesh: ``rules``, the forward's :class:`Placement` and the
     layer's ``layout`` (per cache leaf, the dim split over the model axis,
-    or None)."""
+    or None). A placed model's layer (``place.weights``) reads its
+    parameters through a :class:`PlacedTree` made here (``name``: the
+    layer's parameter prefix), so remat gathers them again."""
     eps = cfg.norm_eps
     norm = L.layer_norm if cfg.family == "encdec" else L.rms_norm
+    if place is not None and place.weights is not None:
+        p = place.weights.view(p, name)
     new_cache: dict = {}
     if kind in ATTN_TYPES or kind in ("enc_attn", "dec_attn"):
         h, c_attn = L.attention(
             p["attn"], cfg, norm(p["ln1"], x, eps), mode=mode,
             pos_offset=pos_offset, cache=cache["attn"] if cache else None,
             cache_len=cache_len, rules=rules, kv_dim=_kv_dim(layout, "attn"),
-            **_attn_kind_args(cfg, kind))
+            tp=_tp(p, "attn", "wq"), **_attn_kind_args(cfg, kind))
         x = x + h
         if c_attn is not None:
             new_cache["attn"] = c_attn
@@ -427,7 +508,7 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
                 p["cross"], cfg, norm(p["ln_cross"], x, eps), mode=mode,
                 pos_offset=pos_offset, cache=cache["cross"] if cache else None,
                 cross_x=cross_x, mask_kind="cross", rules=rules,
-                kv_dim=_kv_dim(layout, "cross"))
+                kv_dim=_kv_dim(layout, "cross"), tp=_tp(p, "cross", "wq"))
             x = x + h
             if c_cross is not None:
                 new_cache["cross"] = c_cross
@@ -441,7 +522,8 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
                            data=place.data if place is not None else None)
         else:
             h2 = L.mlp(p["mlp"], h2in,
-                       "gelu" if cfg.family == "encdec" else cfg.act)
+                       "gelu" if cfg.family == "encdec" else cfg.act,
+                       tp=_tp(p, "mlp", "w_up"))
         return x + h2, new_cache
     if kind == "mlstm":
         h, c = _whole_states(functools.partial(
@@ -459,7 +541,7 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
             p["attn"], cfg, xin, mode=mode, pos_offset=pos_offset,
             cache=cache["attn"] if cache else None, cache_len=cache_len,
             rules=rules, kv_dim=_kv_dim(layout, "attn"),
-            **_attn_kind_args(cfg, kind))
+            tp=_tp(p, "attn", "wq"), **_attn_kind_args(cfg, kind))
         hm, c_ssm = _whole_states(
             functools.partial(S.mamba_block, p["mamba"], cfg, xin, mode=mode),
             {"ssm": cache["ssm"], "conv": cache["conv"]} if cache else None,
@@ -469,11 +551,21 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, mode: str,
         hm = L.rms_norm(p["mamba_norm"], hm, eps)
         w = p["mix"]["w"].to(ha.dtype)
         x = x + w[0] * ha + w[1] * hm
-        x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x, eps), cfg.act)
+        x = x + L.mlp(p["mlp"], L.rms_norm(p["ln2"], x, eps), cfg.act,
+                      tp=_tp(p, "mlp", "w_up"))
         if c_attn is not None:
             c_ssm["attn"] = c_attn
         return x, c_ssm
     raise ValueError(kind)
+
+
+def _tp(p, block: str, leaf: str):
+    """The model axis's shards when ``p[block]`` runs tensor-parallel
+    (a placed layer whose ``leaf`` is split over the model axis along its
+    dim 1: attention's q heads, the MLP's d_ff), else None."""
+    if not isinstance(p, PlacedTree):
+        return None
+    return p.plan.model if p[block].model_dim(leaf) == 1 else None
 
 
 def _kv_dim(layout, name: str):
@@ -610,6 +702,7 @@ class Placement:
     batch: int
     data: object
     layouts: dict
+    weights: Optional[PlacedWeights] = None
 
 
 def row_shards(rules, B: int):
@@ -648,7 +741,7 @@ def _layouts(cfg: ModelConfig, B: int, cache_len: int, rules) -> dict:
 
 
 def _placed(cfg: ModelConfig, batch: dict, mode: str, caches,
-            cache_len: Optional[int], rules):
+            cache_len: Optional[int], rules, weights=None):
     """(this rank's batch, :class:`Placement`, the whole buffer length)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
@@ -667,10 +760,35 @@ def _placed(cfg: ModelConfig, batch: dict, mode: str, caches,
                                        and front is not None else 0)
     data = row_shards(rules, B)
     if data is not None:
-        batch = {k: rules.local(v, _ROWS + ((None,),) * (v.dim() - 1))
-                 for k, v in batch.items()}
+        batch = {k: local_rows(rules, v) for k, v in batch.items()}
     layouts = _layouts(cfg, B, cache_len, rules) if mode != "train" else {}
-    return batch, Placement(B, data, layouts), cache_len
+    return batch, Placement(B, data, layouts, weights), cache_len
+
+
+def local_rows(rules, x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a whole-batch tensor (split over the data
+    axes)."""
+    return rules.local(x, _ROWS + ((None,),) * (x.dim() - 1))
+
+
+def _check_placed(model: DecoderLM, batch: dict, mode: str, rules):
+    """A placed model trains on its own mesh, its rows split over the
+    data axes; returns its placement."""
+    plan = model.placement
+    if mode != "train":
+        raise ValueError("a placed model (each parameter one block of its "
+                         "leaf) runs train mode only; gather the whole model "
+                         "(train.step.gather_train_state) to serve it")
+    if not on_mesh(rules) or rules.shape != plan.rules.shape or \
+            rules.mesh is not plan.rules.mesh:
+        raise ValueError("a placed model runs on the mesh it was placed on: "
+                         "pass its rules")
+    B = batch["tokens"].shape[0]
+    n = math.prod(rules.shape[a] for a in rules.data_axes)
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over the "
+                         f"{n} data ranks")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -678,18 +796,18 @@ def _placed(cfg: ModelConfig, batch: dict, mode: str, caches,
 # ---------------------------------------------------------------------------
 
 
-def _embed(model: DecoderLM, cfg: ModelConfig, tokens):
-    e = F.embedding(tokens, model.embed["w"])
+def _embed(w, cfg: ModelConfig, tokens):
+    e = F.embedding(tokens, w)
     if cfg.family in ("dense",) and cfg.name.startswith("gemma"):
         e = e * math.sqrt(cfg.d_model)
     return e
 
 
-def _head(model: DecoderLM, cfg: ModelConfig, x):
+def _head(W, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
-        logits = x @ model.embed["w"].T
+        logits = x @ W["embed"]["w"].T
     else:
-        logits = x @ model.head["w"]
+        logits = x @ W["head"]["w"]
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
@@ -720,15 +838,16 @@ def _layer_fn(remat: bool):
 
 
 def _encode(model: DecoderLM, cfg: ModelConfig, frontend,
-            layer_fn=apply_layer):
+            layer_fn=apply_layer, rules=None, place=None):
     """Whisper's encoder over (B, frontend_len, d) frames: the sinusoid
     added in the frames' dtype, then the layers in the model's."""
     x = frontend + _sinusoidal(frontend.shape[1], cfg.d_model,
                                frontend.device).to(frontend.dtype)[None]
     x = x.to(model.embed["w"].dtype)
-    for layer in model.groups["g0_enc_attn"]:
+    for i, layer in enumerate(model.groups["g0_enc_attn"]):
         x, _ = layer_fn(layer, cfg, "enc_attn", x, mode="train",
-                        pos_offset=0, cache=None, cache_len=None)
+                        pos_offset=0, cache=None, cache_len=None, rules=rules,
+                        place=place, name=f"groups.g0_enc_attn.{i}")
     return x
 
 
@@ -757,11 +876,16 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
     cfg = model.cfg
     layer_fn = _layer_fn(remat and mode == "train")
     place = None
+    plan = (None if model.placement is None
+            else _check_placed(model, batch, mode, rules))
     if on_mesh(rules):
         batch, place, cache_len = _placed(cfg, batch, mode, caches,
-                                          cache_len, rules)
+                                          cache_len, rules, plan)
     else:
         rules = None
+    # the top-level leaves, gathered once (the tied embedding's two uses
+    # share one gather)
+    W = model if plan is None else plan.view(model, "")
     tokens = batch["tokens"]
     frontend = batch.get("frontend")
     if mode == "decode" and caches is None:
@@ -774,9 +898,9 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
             raise ValueError(f"{cfg.name}: the encoder needs "
                              f"batch['frontend'] outside decode")
         else:
-            cross_x = _encode(model, cfg, frontend, layer_fn)
+            cross_x = _encode(model, cfg, frontend, layer_fn, rules, place)
 
-    x = _embed(model, cfg, tokens)
+    x = _embed(W["embed"]["w"], cfg, tokens)
     if cfg.family == "encdec":
         if mode == "decode":
             if not 0 <= pos_offset < cfg.max_seq_len:
@@ -784,7 +908,7 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
                                  f"dec_pos's {cfg.max_seq_len} rows")
             x = x + model.dec_pos["w"][pos_offset:pos_offset + 1][None]
         else:
-            x = x + model.dec_pos["w"][None, :x.shape[1]]
+            x = x + W["dec_pos"]["w"][None, :x.shape[1]]
     prefix = cfg.family == "vlm" and frontend is not None and mode != "decode"
     if prefix:
         x = torch.cat([frontend.to(x.dtype), x], dim=1)
@@ -810,13 +934,14 @@ def forward(model: DecoderLM, batch: dict, *, mode: str = "train",
             x, _ = layer_fn(layer, cfg, kind, x, mode=mode,
                             pos_offset=pos_offset, cache=lc,
                             cache_len=cache_len, cross_x=cross_x,
-                            rules=rules, place=place, layout=layout)
+                            rules=rules, place=place, layout=layout,
+                            name=f"groups.{key}.{i}")
 
     norm = L.layer_norm if cfg.family == "encdec" else L.rms_norm
-    x = norm(model.final_norm, x, cfg.norm_eps)
+    x = norm(W["final_norm"], x, cfg.norm_eps)
     if prefix:
         x = x[:, frontend.shape[1]:]
-    logits = _head(model, cfg, x)
+    logits = _head(W, cfg, x)
     return logits, (caches if mode in ("prefill", "decode") else None)
 
 

@@ -22,20 +22,28 @@ over the model axis, E/|model| contiguous experts per rank:
     rows' whole sequence on every model rank.
 
 Collectives per layer: two ``all_to_all_single`` and one ``all_gather``
-over the model group. Weights are whole on every rank in this slice
-(their placement is ROADMAP A.9.3b); a rank multiplies by its own
-experts' views. With a capacity that drops nothing the output equals the
-dense path's, bit for bit where the expert products round alike (on the
-H100 they do: ``chip_smoke.py`` phase 3h holds one layer to it).
+over the model group. Serving holds the weights whole on every rank, and
+a rank multiplies by its own experts' views. Training holds a placed
+model (:mod:`repro_torch.models.placed`): the expert stacks are split
+over the model axis (``("expert", "fsdp", None)``), so each rank keeps
+its experts and gathers their ``d_model`` over the data axes, and the
+router is gathered whole. In train mode gradients flow through every
+exchange (:mod:`repro_torch.distributed.parallel`): each
+``all_to_all_single``'s backward is the reverse exchange, the closing
+all-gather's is this rank's slice, and the input's gradient — each rank
+routed its own slice — adds over the model group, as does the router's.
+With a capacity that drops nothing the output equals the dense path's,
+bit for bit where the expert products round alike (on the H100 they do:
+``chip_smoke.py`` phase 3h holds one layer to it).
 """
 from __future__ import annotations
 
 import math
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.core.distributed import gather_cat
+from repro_torch.distributed.parallel import (all_to_all, copy_in,
+                                             gather_cat_grad)
 from repro_torch.distributed.sharding import on_mesh
 from repro_torch.models.layers import NEG_INF, _act
 
@@ -55,7 +63,8 @@ def ep_applicable(cfg, rules, B: int, S: int) -> bool:
 
 def moe_ep(p, cfg, x, act: str, rules, capacity_factor: float | None = None):
     """x: (B_loc, S, D), this rank's rows (the same on every rank of its
-    model group) → (B_loc, S, D)."""
+    model group) → (B_loc, S, D). ``p``: the MoE block's weights, whole
+    (serving) or a placed layer's tree (training)."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity
     sh = rules.shards(("model",))
@@ -70,10 +79,19 @@ def moe_ep(p, cfg, x, act: str, rules, capacity_factor: float | None = None):
     dev = x.device
     Ts = B_loc * S_loc
     cap = max(int(math.ceil(Ts * K / E * capacity_factor)), 1)
+    lo = mi * e_loc
+    if hasattr(p, "block"):             # a placed layer: its own experts
+        router = p.partitioned()["router"]
+        wg, wu, wd = p.block("w_gate"), p.block("w_up"), p.block("w_down")
+    else:
+        router = p["router"]
+        wg, wu, wd = (p[k][lo:lo + e_loc] for k in ("w_gate", "w_up",
+                                                     "w_down"))
+    x = copy_in(sh, x)
     xs = x[:, mi * S_loc:(mi + 1) * S_loc].reshape(Ts, D)
 
     # -- route this rank's token slice (the product over all the rows) --
-    logits = (x.reshape(B_loc * S, D).float() @ p["router"].float()) \
+    logits = (x.reshape(B_loc * S, D).float() @ router.float()) \
         .view(B_loc, S, E)[:, mi * S_loc:(mi + 1) * S_loc].reshape(Ts, E)
     if E_real < E:  # padded experts never routed
         pad = torch.arange(E, device=dev) >= E_real
@@ -99,18 +117,14 @@ def moe_ep(p, cfg, x, act: str, rules, capacity_factor: float | None = None):
     send = send[:-1]                                          # (E·cap, D)
 
     # -- dispatch / compute / return --
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=sh.group)
+    recv = all_to_all(send, sh.group)
     buf = recv.view(n_model, e_loc, cap, D).transpose(0, 1) \
         .reshape(e_loc, n_model * cap, D)
-    lo = mi * e_loc
-    h = _act(act)(torch.bmm(buf, p["w_gate"][lo:lo + e_loc])) \
-        * torch.bmm(buf, p["w_up"][lo:lo + e_loc])
-    out = torch.bmm(h, p["w_down"][lo:lo + e_loc])
+    h = _act(act)(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
+    out = torch.bmm(h, wd)
     out = out.view(e_loc, n_model, cap, D).transpose(0, 1) \
         .reshape(E * cap, D)
-    back = torch.empty_like(out)
-    dist.all_to_all_single(back, out, group=sh.group)
+    back = all_to_all(out, sh.group)
 
     # -- undo the binning, apply the combine weights in (token, k) order --
     contrib = torch.where(keep[:, None],
@@ -119,4 +133,4 @@ def moe_ep(p, cfg, x, act: str, rules, capacity_factor: float | None = None):
     per_k = torch.empty_like(contrib)
     per_k[order] = contrib
     y = per_k.view(Ts, K, D).sum(dim=1).view(B_loc, S_loc, D).to(x.dtype)
-    return gather_cat(sh, y, 1)
+    return gather_cat_grad(sh, y, 1)

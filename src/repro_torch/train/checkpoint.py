@@ -19,8 +19,16 @@ written by either package restores into the other. The port's train state
 (``train.step.init_train_state``) goes to and from that tree through
 ``convert.lm_train_state_tree`` and ``convert.lm_train_state_from_arrays``;
 any other nested dict of tensors is saved leaf by leaf. Restore places the
-leaves on a ``device`` (the reference's ``shardings=`` waits for the LM
-mesh).
+leaves on a ``device``.
+
+On a mesh (a train state placed by ``train.step``: each rank its blocks)
+every rank calls :meth:`CheckpointManager.save`; the blocks are gathered
+into whole leaves, rank 0 writes them in the same format, and the other
+ranks wait for it. So a checkpoint saved on one mesh is the same file as
+one saved on one device, and :meth:`CheckpointManager.restore`'s
+``shardings=`` places it on any mesh (the elastic path): a train state's
+leaves cut to this rank's blocks by the rules of the current mesh, any
+other tree's leaves as ``DTensor``s by the placements given.
 
 Async mode runs step 1–3 on a worker thread so the train loop never blocks
 on I/O (overlap of checkpoint writes with compute).
@@ -40,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import convert
 from repro_torch.models.model import DecoderLM
@@ -141,12 +150,29 @@ class CheckpointManager:
     def save(self, step: int, state, extra: Optional[dict] = None,
              cfg_hash: str = ""):
         """Snapshot state (device→host copy happens here, synchronously, so
-        the caller may overwrite the tensors immediately after)."""
+        the caller may overwrite the tensors immediately after). A placed
+        train state: every rank calls it, rank 0 writes the gathered
+        leaves before it returns, and the other ranks return once it
+        has."""
+        placed = _is_train_state(state) and \
+            state["params"].placement is not None
+        if placed:
+            from repro_torch.train.step import gather_train_state
+
+            rules = state["params"].placement.rules
+            lead = int(rules.mesh.mesh.flatten()[0])
+            state = gather_train_state(state, dst=lead)
+            if state is None:          # not the writer: wait for it
+                dist.barrier(group=rules.shards(tuple(rules.shape)).group)
+                return
         tree = (convert.lm_train_state_tree(state) if _is_train_state(state)
                 else _map_with_names(lambda n, x: _host(x), state))
         host = [(n,) + _to_numpy(t) for n, t in _flatten_with_names(tree)]
         job = (step, host, extra or {}, cfg_hash)
-        if self.async_write:
+        if placed:
+            self._write(job)
+            dist.barrier(group=rules.shards(tuple(rules.shape)).group)
+        elif self.async_write:
             self._q.put(job)
         else:
             self._write(job)
@@ -219,12 +245,19 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, target_state, step: Optional[int] = None, device=None,
-                cfg_hash: Optional[str] = None):
+                cfg_hash: Optional[str] = None, shardings=None):
         """Restore into the structure of ``target_state``: a port train
         state (rebuilt by ``convert.lm_train_state_from_arrays`` for the
         target's config) or a nested dict of tensors. Each leaf takes the
         target leaf's dtype, on ``device`` (None: the target leaf's).
-        Returns ``(state, manifest)``; the target is left as it was."""
+        Returns ``(state, manifest)``; the target is left as it was.
+
+        ``shardings`` places the leaves on a mesh, whatever mesh saved
+        them: for a train state, the current mesh's ``MeshRules`` (each
+        rank gets its blocks, ``train.step.place_train_state``); for
+        another tree, a tree of the same keys whose leaves are
+        ``(DeviceMesh, placements)`` pairs (each leaf a ``DTensor`` of this
+        rank's block)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -254,12 +287,51 @@ class CheckpointManager:
             for name in names:
                 convert.put_path(tree, tuple(name.split("/")), read(name))
             dev = device if device is not None else model.embed["w"].device
-            return (convert.lm_train_state_from_arrays(model.cfg, tree, dev),
-                    manifest)
+            if shardings is None:
+                return (convert.lm_train_state_from_arrays(model.cfg, tree,
+                                                           dev), manifest)
+            from repro_torch.train.step import place_train_state
+
+            whole = convert.lm_train_state_from_arrays(model.cfg, tree, "cpu")
+            return place_train_state(whole, shardings, device=dev), manifest
 
         def leaf(name, ref):
             ref = _host(ref) if not isinstance(ref, torch.Tensor) else ref
-            return read(name).to(device=ref.device if device is None
-                                 else device, dtype=ref.dtype)
+            t = read(name).to(device=ref.device if device is None
+                              else device, dtype=ref.dtype)
+            return t if shardings is None else _dtensor(
+                t, _at(shardings, name))
 
         return _map_with_names(leaf, target_state), manifest
+
+
+def _at(tree, name: str):
+    """The leaf of ``tree`` at a checkpoint name (``params/w``, ``[i]``
+    for a sequence's item)."""
+    for part in name.split("/"):
+        if part.startswith("["):
+            for i in part.strip("[]").split("]["):
+                tree = tree[int(i)]
+        else:
+            tree = tree[part]
+    return tree
+
+
+def _dtensor(t: torch.Tensor, sharding):
+    """This rank's block of the whole ``t`` under ``(mesh, placements)``
+    (a ``Shard(i)`` on mesh dim j cuts dim i into the dim's size, the
+    major mesh dim first), as a ``DTensor``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, placements = sharding
+    coord = mesh.get_coordinate()
+    block = t
+    for j, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            size = mesh.size(j)
+            if block.shape[pl.dim] % size:
+                raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does "
+                                 f"not split into {size}")
+            block = block.chunk(size, pl.dim)[int(coord[j])]
+    return DTensor.from_local(block.contiguous(), mesh, list(placements),
+                              run_check=False)

@@ -73,17 +73,41 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(torch.stack([torch.sum(s) for s in sq]).sum())
 
 
+def mesh_global_norm(grads, first: list, sh) -> torch.Tensor:
+    """:func:`global_norm` of a gradient placed on a mesh, each rank
+    holding its blocks: each leaf's block summed as one reduction on each
+    rank, counted only on the rank that holds the block's first replica
+    (``first``, per leaf: True where this rank does), the ranks' sums
+    gathered over ``sh`` (the shards of every mesh axis) and added in rank
+    order, then the leaves' sums added as one device adds them. Every rank
+    gets the same bits; on one rank, :func:`global_norm`'s."""
+    sq = torch._foreach_mul(grads, grads)
+    sums = torch.stack([torch.sum(s) for s in sq])
+    keep = torch.tensor(first, dtype=torch.bool, device=sums.device)
+    sums = torch.where(keep, sums, torch.zeros_like(sums))
+    if sh.p > 1:
+        from repro_torch.core.distributed import ordered_sum
+
+        sums = ordered_sum(sh, sums)
+    return torch.sqrt(sums.sum())
+
+
 @torch.no_grad()
 def adamw_update(cfg: OptimizerConfig, grads: list, opt_state: dict,
-                 params: list) -> tuple:
+                 params: list, gnorm=None) -> tuple:
     """One AdamW step over ``grads``, aligned with ``opt_state``'s dicts
     and ``params``. Updates the master, the moments and the step in
     place, writes the master into ``params`` in their dtype, and returns
-    ``(opt_state, {"lr", "grad_norm"})`` (fp32 device scalars)."""
+    ``(opt_state, {"lr", "grad_norm"})`` (fp32 device scalars).
+
+    On a mesh every leaf is this rank's block and ``gnorm`` is the whole
+    gradient's norm (:func:`mesh_global_norm`); the update is elementwise,
+    so each rank updates its blocks."""
     step = opt_state["step"]
     lr = lr_at(cfg, step)
     grads = [g.float() for g in grads]
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     # a tensor numerator: ``float / tensor`` is a reciprocal and a product
     scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                         / (gnorm + 1e-9), max=1.0)

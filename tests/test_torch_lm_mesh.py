@@ -287,10 +287,13 @@ def test_ep_applicable_matches_reference(arch, mesh, B, S):
 
 
 def test_train_on_a_mesh_names_the_next_slice():
+    """``train(mesh=)`` runs on a process group: without one it raises,
+    naming what to call (the mesh's training is
+    ``tests/test_torch_lm_mesh_train.py``'s)."""
     from repro_torch.train.trainer import TrainConfig, train
     from repro_torch.train.optimizer import OptimizerConfig
 
-    with pytest.raises(NotImplementedError, match="A.9.3b"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         train(configs.get_reduced_config("qwen3-0.6b"), TrainConfig(),
               OptimizerConfig(), iter(()), mesh=object(), device="cpu")
 

@@ -281,11 +281,47 @@ def test_sigterm_checkpoints_then_exits(tmp_path):
     assert signal.getsignal(signal.SIGTERM) is not None
 
 
-def test_mesh_is_a_later_slice():
+def _mesh_train_rank(rank, world, d):
+    """One gloo rank of a (1, 2) mesh: ``train(mesh=)`` resumed from the
+    single-device checkpoint in ``d`` to step 4; the whole state."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.train.step import gather_train_state
+
+    torch.set_num_threads(1)
     cfg = configs.get_reduced_config("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="A.9.3"):
-        train(cfg, TrainConfig(steps=1), OptimizerConfig(), [], mesh=object(),
-              device="cpu")
+    mesh = DeviceMesh("cpu", [[0, 1]], mesh_dim_names=("data", "model"))
+    state, hist = train(cfg, TrainConfig(steps=4, ckpt_every=100,
+                                         ckpt_dir=d, resume="auto",
+                                         log_every=1),
+                        OptimizerConfig(**_opt()), _port_batches(cfg, skip=2),
+                        mesh=mesh, device="cpu")
+    return ([h["loss"] for h in hist],
+            lm_train_state_to_arrays(gather_train_state(state)))
+
+
+def test_train_on_a_mesh_resumes_a_single_device_checkpoint(tmp_path):
+    """``train(mesh=)`` on two gloo ranks, resumed from a checkpoint that
+    ``train`` wrote on one device after two steps: its steps 3 and 4
+    within REL of the single-device run's, on every rank the same."""
+    from repro_torch.core.distributed import spawn_local
+
+    cfg = configs.get_reduced_config("qwen3-0.6b")
+    opt = OptimizerConfig(**_opt())
+    straight, hist = train(cfg, TrainConfig(steps=4, ckpt_every=100,
+                                            log_every=1), opt,
+                           _port_batches(cfg), device="cpu")
+    d = str(tmp_path / "ck")
+    train(cfg, TrainConfig(steps=2, ckpt_every=2, ckpt_dir=d, log_every=100),
+          opt, _port_batches(cfg), device="cpu")
+    ranks = spawn_local(_mesh_train_rank, 2, store_dir=tmp_path, args=(d,),
+                        timeout=300)
+    (losses, state), (losses1, _) = ranks
+    assert losses == losses1
+    for got, want in zip(losses, [h["loss"] for h in hist][2:]):
+        assert abs(got - want) <= REL * abs(want)
+    _close_trees(state, lm_train_state_to_arrays(straight), "mesh")
+    assert int(state["opt"]["step"]) == 4
 
 
 def test_curated_training_runs_and_learns():
