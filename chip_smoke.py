@@ -205,6 +205,20 @@ Phases (any failure exits non-zero before the result lines):
    for bit ``train(mesh=None)``. Reported per rank: ms per step, state
    bytes against the whole, a step's census, peak memory, ``gain_eval``
    launches, and each part's seconds.
+   After 3g, the production dry run against the card (phase 3j): the dry
+   run (``repro_torch.launch.dryrun``) of phase 3g's cell — ``qwen3-0.6b``
+   uncut, bf16, remat, 8 × 512, the placed train step on a (1, 1) mesh —
+   on meta tensors over a fake group of one rank, then one real step of
+   the same code path on the card on one NCCL rank, under the dry run's
+   own counters. Gates: the FLOPs (``FlopCounterMode``), the bytes
+   accessed, the op count, the peak of the step's live storage and the
+   collectives equal on both sides, and the argument bytes the summed
+   ``nbytes`` of the real state and batch. Printed, not gated: the
+   predicted peak beside the real step's ``max_memory_allocated`` (over
+   what the card held before its state) and 3g's, the roofline's bound
+   of the unfused eager step and the function's floor bound (H100
+   data-sheet peaks) beside 3g's ms per step, ``lm_train_flops`` beside
+   the counted FLOPs, and the phase's seconds.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -305,14 +319,6 @@ EARLIER_STREAM_MEMBERS = [10377, 49155, 34451, 15123, 7707, 34486, 12954,
 LIBRARY = {name: "cuBLAS Gram" for name in MAIN_KERNELS + SERVING_KERNELS}
 LIBRARY.update({name: "torch.sum yardstick" for name in STREAM_KERNELS})
 
-#: Dense peaks per card (NVIDIA data sheets): fp32 outside the tensor cores,
-#: bf16/fp16 on the tensor cores, device memory bandwidth.
-PEAKS = {
-    "H100 SXM": {"fp32": 67e12, "half": 989e12, "bw": 3.35e12},
-    "H100 NVL": {"fp32": 60e12, "half": 835e12, "bw": 3.9e12},
-    "H100 PCIe": {"fp32": 51e12, "half": 756e12, "bw": 2.0e12},
-}
-
 
 def log(*a):
     print(*a, flush=True)
@@ -326,6 +332,11 @@ def card_line() -> str:
 
 
 def peaks_for(name: str) -> dict:
+    """The card's row of the dense peaks (NVIDIA data sheets:
+    ``repro_torch.launch.roofline.PEAKS``): fp32 outside the tensor cores,
+    bf16/fp16 on the tensor cores, device memory bandwidth."""
+    from repro_torch.launch.roofline import PEAKS
+
     if "PCIe" in name:
         return PEAKS["H100 PCIe"]
     if "NVL" in name:
@@ -3720,6 +3731,124 @@ def phase_lm_training(peaks) -> dict:
     return r
 
 
+#: Phase 3j, the production dry run against the card: phase 3g's cell
+#: (``LM_TRAIN_FULL``'s arch, batch and length; bf16, remat), as the dry
+#: run's train step runs it — the placed step on a (1, 1) ``("data",
+#: "model")`` mesh.
+LM_DRYRUN_MESH = (1, 1)
+
+
+def phase_lm_dryrun(train_report, peaks) -> dict:
+    """Phase 3j: the dry run (``repro_torch.launch.dryrun``) of 3g's cell on
+    meta tensors over a fake group of one rank, then one real step of the
+    same code path on the card, on one NCCL rank (an in-process store),
+    under the dry run's own counters (``dryrun.measure``). Gates: the
+    FLOPs, the bytes accessed, the op count, the peak of the step's live
+    storage and the collectives equal on both sides, and the argument
+    bytes equal to the real state's and batch's. Printed: the peaks, the
+    roofline's eager bound and the function's floor bound against 3g's
+    ms per step, ``lm_train_flops`` against the counted FLOPs."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.distributed.sharding import MeshRules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import step as St
+
+    t0 = time.perf_counter()
+    c = LM_TRAIN_FULL
+    cfg = get_config(c["arch"])
+    shape = Shape("phase_3g", c["S"], c["B"], "train")
+    axes = ("data", "model")
+    if dist.is_initialized():
+        raise AssertionError("phase 3j starts with no process group")
+    D.ensure_fake_group(1)
+    try:
+        run, meta = D.lower_cell(c["arch"], shape, False, cfg=cfg,
+                                 mesh=make_mesh(LM_DRYRUN_MESH, axes))
+    finally:
+        dist.destroy_process_group()
+    rec = D.cell_record(run, meta, shape, peaks=peaks)
+    t_dry = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(LM_DRYRUN_MESH, axes)
+        if mesh.device_type != "cuda":
+            raise AssertionError(f"3j: an NCCL rank's mesh is on "
+                                 f"{mesh.device_type!r}, not the card")
+        rules = MeshRules.for_mesh(mesh)
+        D.resolve_shards(rules)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()    # what earlier phases hold
+        state = St.init_train_state(cfg, 0, "cuda", rules=rules)
+        batch = _train_batch(cfg, c["B"], c["S"],
+                             torch.Generator().manual_seed(0), "cuda")
+        real_args = D.nbytes(state) + D.nbytes(batch)
+        step = D.cell_step(cfg, shape, rules)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        real = D.measure(step, state, batch)
+        torch.cuda.synchronize()
+        real_peak = torch.cuda.max_memory_allocated() - base
+        loss = float(real.pop("out")[1]["loss"])
+        del state, batch, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    mem = rec["memory"]
+    counts = {"flops": (run["flops"], real["flops"]),
+              "bytes accessed": (run["bytes accessed"],
+                                 real["bytes accessed"]),
+              "aten_ops": (run["aten_ops"], real["aten_ops"]),
+              "temp_bytes": (run["temp_bytes"], real["temp_bytes"]),
+              "collectives": (run["collectives"], real["collectives"])}
+    differ = {k: v for k, v in counts.items() if v[0] != v[1]}
+    if differ:
+        raise AssertionError(f"3j: the dry run's counts differ from the "
+                             f"real step's (dry run, card): {differ}")
+    real_flops = real["flops"]
+    if mem["argument_bytes"] != real_args:
+        raise AssertionError(f"3j: the dry run's argument bytes "
+                             f"{mem['argument_bytes']} != the real state's "
+                             f"and batch's {real_args}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"3j: the real step's loss {loss}")
+    terms = rec["roofline"]
+    measured_s = train_report["ms_per_step"] / 1e3
+    hand = lm_train_flops(cfg, c["B"], c["S"])
+    return {
+        "flops": real_flops, "argument_bytes": real_args,
+        "bytes_accessed": real["bytes accessed"],
+        "aten_ops": real["aten_ops"], "temp_bytes": real["temp_bytes"],
+        "collectives": real["collectives"]["counts"],
+        "real_step_counted_s": real["seconds"],
+        "predicted_peak_bytes": mem["peak_bytes_per_device"],
+        "predicted_temp_bytes": mem["temp_bytes"],
+        "real_step_peak_bytes": real_peak, "memory_allocated_before": base,
+        "phase_3g_max_memory_allocated": train_report["max_memory_allocated"],
+        "roofline": {k: terms[k] for k in ("compute_s", "memory_s",
+                                           "collective_s", "bottleneck",
+                                           "bound_s", "memory_floor_bytes",
+                                           "memory_floor_s",
+                                           "floor_bound_s")},
+        "phase_3g_ms_per_step": train_report["ms_per_step"],
+        "share_of_bound_reached": terms["bound_s"] / measured_s,
+        "share_of_floor_bound_reached": terms["floor_bound_s"] / measured_s,
+        "lm_train_flops": hand["total"],
+        "lm_train_flops_over_counted": hand["total"] / real_flops,
+        "real_step_loss": loss,
+        "dry_run_s": t_dry, "meta_run_s": rec["lower_s"],
+        "seconds": time.perf_counter() - t0,
+    }
+
+
 def previous_order_gains(caches, dvec, *, seed, n_total=None, fold="min",
                          score_affine=None):
     """The sieve gains of ``cat([seed, caches])`` in the order of fp32
@@ -4363,6 +4492,36 @@ def main() -> int:
     train_report = phase_lm_training(peaks)
     log(f"    launches over the phase: {json.dumps(dict(ops.LAUNCHES))}; "
         f"phase {time.perf_counter() - t0:.1f} s")
+    log(f"[3j] the production dry run against one real step of 3g's cell "
+        f"({LM_TRAIN_FULL['arch']}, {LM_TRAIN_FULL['B']} x "
+        f"{LM_TRAIN_FULL['S']}, bf16, remat; the placed step on a "
+        f"{LM_DRYRUN_MESH} mesh)")
+    dry = phase_lm_dryrun(train_report, peaks)
+    log(f"    dry run = the real step on one NCCL rank, under the same "
+        f"counters: FLOPs {dry['flops']:.6e}, bytes accessed "
+        f"{dry['bytes_accessed']:.6e} in {dry['aten_ops']} ops, the step's "
+        f"live-storage peak {dry['temp_bytes']} B, collectives "
+        f"{json.dumps(dry['collectives'])}; argument bytes: dry run = the "
+        f"real state's and batch's nbytes = {dry['argument_bytes']}")
+    log(f"    peak (not gated): predicted {dry['predicted_peak_bytes']} B "
+        f"(arguments + {dry['predicted_temp_bytes']} B of the step's live "
+        f"storage), the real step's max_memory_allocated over the "
+        f"{dry['memory_allocated_before']} B held before its state "
+        f"{dry['real_step_peak_bytes']} B, 3g's over train() "
+        f"{dry['phase_3g_max_memory_allocated']} B")
+    log(f"    roofline (predicted from the H100 data-sheet peaks "
+        f"{json.dumps(peaks)}; not gated): {json.dumps(dry['roofline'])}, "
+        f"against 3g's "
+        f"{dry['phase_3g_ms_per_step']:.1f} ms a step: "
+        f"{dry['share_of_bound_reached']:.3f} of the unfused eager step's "
+        f"bound reached, {dry['share_of_floor_bound_reached']:.3f} of the "
+        f"function's (its memory floor "
+        f"{dry['roofline']['memory_floor_bytes']} B); "
+        f"lm_train_flops {dry['lm_train_flops']:.6e} = "
+        f"{dry['lm_train_flops_over_counted']:.4f} x the counted FLOPs")
+    log(f"    report: {json.dumps(dry)}")
+    log(f"    phase {dry['seconds']:.1f} s (the meta run "
+        f"{dry['meta_run_s']:.1f} s)")
     # each path's own launches: the main path's four kernels, the serving
     # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}

@@ -20,7 +20,10 @@ once, on real (small) inputs, and records per op:
   blocking copy on the card, which ``torch.cuda.set_sync_debug_mode``
   reports as a sync;
 * **collectives**: every ``c10d`` op (``allgather_``, ``allreduce_``, …)
-  with the bytes of its input operand;
+  with the bytes of its input operand, and with the bytes of its result
+  (its first argument: the outputs of a gather, a reduce-scatter or an
+  all-to-all, the tensors an all-reduce or a broadcast writes in place),
+  which the dry run's roofline sums (``launch.roofline.collective_bytes``);
 * **precision**: a half-precision tensor widened to fp32, with its size,
   and the matmuls that consume half operands.
 
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import sys
 import threading
 import types
@@ -118,15 +122,24 @@ BLOCKED_WIDEN = frozenset({("core/distances.py", "_dot"),
 ALIGN_COPY = frozenset({("core/streaming.py", "_aligned")})
 
 
+@functools.lru_cache(maxsize=None)
+def _package_path(filename: str) -> Optional[str]:
+    """A code file's path relative to the package, None outside it or
+    inside this analysis package (one resolve per file)."""
+    p = Path(filename).resolve()
+    if p.is_relative_to(PKG_DIR) and not p.is_relative_to(_ANALYSIS_DIR):
+        return p.relative_to(PKG_DIR).as_posix()
+    return None
+
+
 def _site_frame():
     """(relative path, line, function) of the innermost frame of the
     package outside this analysis package, or None."""
     f = sys._getframe(1)
     while f is not None:
-        p = Path(f.f_code.co_filename).resolve()
-        if p.is_relative_to(PKG_DIR) and not p.is_relative_to(_ANALYSIS_DIR):
-            return (p.relative_to(PKG_DIR).as_posix(), f.f_lineno,
-                    f.f_code.co_name)
+        rel = _package_path(f.f_code.co_filename)
+        if rel is not None:
+            return (rel, f.f_lineno, f.f_code.co_name)
         f = f.f_back
     return None
 
@@ -169,6 +182,8 @@ class Census:
     collectives: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     collective_bytes: list = dataclasses.field(default_factory=list)
+    #: (op, result bytes) of every collective, in dispatch order
+    collective_results: list = dataclasses.field(default_factory=list)
     allocs: int = 0
     alloc_bytes: int = 0
     #: (dtype, shape, elems) of every half → fp32 widen outside the kernels
@@ -257,6 +272,8 @@ class _Recorder(TorchDispatchMode):
             operand = args[1] if name in _GATHER_LIKE else args[0]
             c.collective_bytes.append(sum(_nbytes(t)
                                           for t in _tensors(operand)))
+            c.collective_results.append(
+                (name, sum(_nbytes(t) for t in _tensors(args[0]))))
             return
         if name in _MATMULS and any(t.dtype in _HALF for t in ins):
             c.half_matmuls += 1

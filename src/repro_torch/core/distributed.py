@@ -126,14 +126,21 @@ def _require_process_group() -> None:
             "1-D mesh over the default group)")
 
 
+def mesh_device_type() -> str:
+    """The device kind of a ``DeviceMesh`` over the current process group:
+    ``"cuda"`` for NCCL ranks, ``"cpu"`` for gloo (and the dry run's fake
+    group)."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
 def _default_mesh(axis: str):
     from torch.distributed.device_mesh import DeviceMesh
 
     key = (axis, id(dist.group.WORLD))
     mesh = _DEFAULT_MESHES.get(key)
     if mesh is None:
-        dev_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        mesh = DeviceMesh(dev_type, list(range(dist.get_world_size())),
+        mesh = DeviceMesh(mesh_device_type(),
+                          list(range(dist.get_world_size())),
                           mesh_dim_names=(axis,))
         _DEFAULT_MESHES[key] = mesh
     return mesh

@@ -460,6 +460,17 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> DecoderLM:
     return DecoderLM(cfg, tree)
 
 
+def abstract_model(cfg: ModelConfig) -> DecoderLM:
+    """A :class:`DecoderLM` whose every leaf is an empty meta tensor of
+    its spec's shape and dtype: the counterpart of the reference's
+    ``jax.eval_shape`` of ``init_model``. Nothing is allocated or drawn
+    (a ``torch.Generator`` has no meta device, so :func:`init_model`
+    cannot build one)."""
+    dtype = DTYPES[cfg.dtype]
+    return DecoderLM(cfg, _walk_named(cfg, lambda name, s: torch.empty(
+        s.shape, dtype=leaf_dtype(s, dtype), device="meta")))
+
+
 # ---------------------------------------------------------------------------
 # per-layer application
 # ---------------------------------------------------------------------------
