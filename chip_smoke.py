@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the result lines):
 1. Environment and build: the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA source under
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) with the
-   compiler's register/spill report.
+   compiler's register/spill report. While nvcc runs, this process runs
+   phase 3g's fp32 gates 1 and 2 (below), which launch none of the port's
+   kernels.
 2. Every kernel against its plain PyTorch version on the card, and (at
    the float32-accumulating policies) against the math oracle of
    ``kernels/ref.py``, on ragged shapes, for every precision policy, both
@@ -48,7 +50,7 @@ Phases (any failure exits non-zero before the result lines):
    ``blobs(50 000, 100, centers=16)``, k = 10, ε = 0.1, backend ``cuda``.
    ``sieve_streaming(mode="device")`` over the whole shuffled stream;
    host mirror against device plan for sieve, pp and salsa on its first
-   8 192 elements (identical members and evaluations, values within
+   2 048 elements (identical members and evaluations, values within
    1e-6); the ``cuda`` backend against ``torch`` on that prefix (reported,
    not gated); ``StreamIngestionService`` fed the prefix, equal to the
    optimizer; ``MultiStreamIngestionService`` with 16 partitions of 2 048
@@ -80,7 +82,7 @@ Phases (any failure exits non-zero before the result lines):
    stochastic and lazy greedy under ``device_sharded`` and
    ``device_sharded_pool``, ``greedi``, a bucket of four paper-size
    tenants under both batched mesh plans with the tenants' unbatched calls,
-   and sieve / pp / salsa under ``device_sharded`` on the first 8 192
+   and sieve / pp / salsa under ``device_sharded`` on the first 2 048
    stream elements. Gates: every rank returns the same results; selections
    and evaluations equal the device plan of phases 3 and 3c exactly,
    trajectories and sieve values within 1e-5 of max(1, |value|); GreeDi at
@@ -129,7 +131,7 @@ Phases (any failure exits non-zero before the result lines):
    share of prefill in the sLSTM's sequential loop. The LM serving path
    launches none of the port's kernels.
    Then LM training with curation (phase 3g), TF32 off for the fp32
-   gates. Gate 1: ``qwen3-0.6b``, ``granite-moe-3b-a800m`` and
+   gates, whose gates 1 and 2 run during phase 1's build. Gate 1: ``qwen3-0.6b``, ``granite-moe-3b-a800m`` and
    ``xlstm-1.3b`` at ``LM_CUT`` in fp32, one train step on the card and on
    the CPU from the same state after two warm steps on the batch's tokens
    shuffled (B = 2, 40 tokens):
@@ -219,6 +221,37 @@ Phases (any failure exits non-zero before the result lines):
    of the unfused eager step and the function's floor bound (H100
    data-sheet peaks) beside 3g's ms per step, ``lm_train_flops`` beside
    the counted FLOPs, and the phase's seconds.
+   After 3j, the reference's property suites and top-level examples on the
+   card (phase 3k). (a) Every kernel against its plain version in phase
+   2's bands (each comparison catching the planted 1 % fault) at the
+   shapes of ``tests/test_kernels.py``: ``fused_eval`` at its ``SHAPES``
+   in both layouts, ``two_pass_eval`` at the first three, every policy at
+   (128, 16, 5, 48), rbf at (96, 12, 4, 32), chunked launches under the
+   suite's 400 000-byte budget (one chunk) and a 30 000-byte one (five)
+   equal to the unchunked one within 1e-6; then
+   ``SUITE_DRAWS`` seeded draws from the suites' ranges, each a gain shape
+   (n in [9, 150], m in [1, 40], d in [1, 70], B in [1, 8], either fold)
+   through rows 4-7 and a sieve table (r in [1, 65], n in [1, 150], P in
+   [1, 8], with and without the seed row) through rows 8-9: every gain
+   >= -1e-6, each request or partition of a batched launch bit for bit its
+   unbatched launch. (b) The suites' invariants on the ``cuda`` backend at
+   their generators and a fixed number of seeded draws
+   (``SUITE_INVARIANTS``): monotone, diminishing returns, f(empty) = 0,
+   greedy >= (1 - 1/e) OPT by brute force at n = 12, min-cache = direct
+   value, every distance, the sieve's (1/2 - eps) bound on both plans, the
+   zoo's chain (non-members only, ROADMAP C.2) and telescoping under rbf,
+   and the device sieve's tables on the 1/32 grid (exact sums) with the
+   ``cuda`` backend bit for bit the ``torch`` backend's, drawn and under
+   salsa's eviction. (c) ``examples/quickstart_torch.py`` and
+   ``examples/streaming_summarization_torch.py``, ``run(device="cuda")``
+   at their own sizes (the quickstart's sharded step on one NCCL rank),
+   held to the reference's figures (``QUICKSTART_FIGURES``,
+   ``STREAMING_FIGURES``): identical selections, or at an argmax step a
+   near tie whose two gains lie within the fp32 band (``gain_gap``);
+   identical evaluations where the selections are; values within
+   ``POLICY_TOLS``; device = host, CELF device = host, sharded = device.
+   Launches are counted over this phase (``suites_launches``), and every
+   kernel must launch in it. Each part's seconds are printed.
 4. At the main path's shapes: each kernel against its plain version
    (the batched kernels at every (B, n, m, d) the serving phase launched
    them at, and at B = 64, n = m = 8 192, d = 100), then timed with CUDA
@@ -237,7 +270,7 @@ Phases (any failure exits non-zero before the result lines):
 
 5. Steady-state wall times of the main path's calls, and profiles (device
    busy time by kernel against wall time) of greedy in both plans and of a
-   2 048-element window of the device sieve, with each top kernel's
+   512-element window of the device sieve, with each top kernel's
    launches and time per launch.
 
 The last three lines are the card's name and power limit, a JSON object
@@ -251,6 +284,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -858,12 +892,18 @@ def report_kernel_checks(check: Checker):
                 f"({what}), {fault:.3g} ({fwhat})")
 
 
-def gain_gap(f, sel_a, sel_b, t):
-    """Host gains of the two diverging picks at round t."""
+def pick_gains(f, sel_a, sel_b, t) -> list:
+    """Host gains of the two diverging picks at round t, against the cache
+    of sel_a's first t picks."""
     cache = f.init_cache()
     for j in sel_a[:t]:
         cache = f.fold_winner(cache, j)
-    g = f.gains_from_cache(cache, [sel_a[t], sel_b[t]]).cpu().tolist()
+    return f.gains_from_cache(cache, [sel_a[t], sel_b[t]]).cpu().tolist()
+
+
+def gain_gap(f, sel_a, sel_b, t):
+    """The two diverging picks' host gains at round t, as a line."""
+    g = pick_gains(f, sel_a, sel_b, t)
     return (f"round {t}: {sel_a[t]} gain {g[0]:.9g} vs {sel_b[t]} gain "
             f"{g[1]:.9g} (gap {g[0] - g[1]:.3e})")
 
@@ -1093,7 +1133,7 @@ def same_stream_result(what, got, ref, atol=1e-6):
             f"{ref.indices} / {ref.evaluations} / {ref.value!r}")
 
 
-def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=8192, P=16,
+def phase_streaming(N=50_000, DIM=100, K=10, EPS=0.1, PREFIX=2048, P=16,
                     PER=2048):
     """Streaming at the paper's size (ground set ``blobs(N, DIM,
     centers=16)``, k = K, ε = EPS, backend ``cuda``). Returns ``(walls,
@@ -2672,7 +2712,7 @@ def _mesh_train_gate1(rank, world, rules, arch, store) -> dict:
 
 class _deterministic:
     """``torch.use_deterministic_algorithms(True)`` for a block (cuBLAS's
-    workspace set as it requires), restored after."""
+    workspace set as it requires), both restored after."""
 
     def __enter__(self):
         import os
@@ -2680,14 +2720,19 @@ class _deterministic:
         import torch
 
         self.prev = torch.are_deterministic_algorithms_enabled()
+        self.prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)
         return self
 
     def __exit__(self, *exc):
+        import os
+
         import torch
 
         torch.use_deterministic_algorithms(self.prev)
+        if self.prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
 
 
 def _one_device_steps(cfg, opt, whole, batches) -> dict:
@@ -3692,8 +3737,9 @@ def lm_train_full(peaks) -> dict:
     }
 
 
-def phase_lm_training(peaks) -> dict:
-    """Phase 3g: gates 1–3 and the report."""
+def phase_lm_gates() -> None:
+    """Phase 3g's fp32 gates 1 and 2, which launch none of the port's
+    kernels (``main`` runs them while the kernels build)."""
     import torch
 
     from repro_torch.configs import get_config, replace
@@ -3716,7 +3762,12 @@ def phase_lm_training(peaks) -> dict:
             f"({time.perf_counter() - t0:.1f} s)")
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+
+def phase_lm_training(peaks) -> dict:
+    """Phase 3g's gate 3 and the report (gates 1-2: :func:`phase_lm_gates`)."""
     t0 = time.perf_counter()
+    arch = LM_TRAIN_FULL["arch"]
     r = lm_train_full(peaks)
     c = LM_TRAIN_FULL
     log(f"  {arch}: gate 3, bf16 full width ({r['params']} parameters), "
@@ -3847,6 +3898,685 @@ def phase_lm_dryrun(train_report, peaks) -> dict:
         "dry_run_s": t_dry, "meta_run_s": rec["lower_s"],
         "seconds": time.perf_counter() - t0,
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase 3k: the reference's property suites and top-level examples on the card
+# ---------------------------------------------------------------------------
+
+#: tests/test_kernels.py's shapes (n, l, k, d): on and off the tile edges
+#: (BLOCK_N = 128, BLOCK_L = 32, CHUNK_D = 16, one set slot, d = 200).
+SUITE_SHAPES = ((64, 8, 3, 16), (257, 19, 7, 33), (512, 64, 10, 100),
+                (100, 5, 1, 128), (96, 24, 16, 200))
+#: Seeded draws of (n, m, d, B) and of (r, n, P) in part (a).
+SUITE_DRAWS = 64
+#: tests/test_kernel_parity.py's per-policy bands: an example's value on
+#: the card against the reference's, on max(1, |reference|).
+POLICY_TOLS = {"fp32": 1e-5, "bf16": 5e-2, "fp16": 1e-2}
+#: The reference's figures for its two top-level examples: the steps of
+#: examples/quickstart.py and examples/streaming_summarization.py through
+#: the JAX package on the CPU. tests/test_torch_examples.py and
+#: tests/test_torch_examples_streaming.py compute them afresh and hold these
+#: equal to them.
+
+
+def _figs(indices, value, evaluations, **extra):
+    return dict(indices=indices, value=value, evaluations=evaluations,
+                **extra)
+
+
+_QUICK_GREEDY = [62, 668, 492, 234, 1762, 1311, 917, 1721]
+_QUICK_SIEVE = [1946, 1236, 1380, 683, 336, 924, 620, 1180]
+QUICKSTART_FIGURES = {
+    "fit": _figs(_QUICK_GREEDY, 11.33134937286377, 15972,
+                 cluster_sizes=[264, 263, 243, 274, 218, 238, 251, 249],
+                 purity=1.0),
+    "optimizers": {
+        "greedy": _figs(_QUICK_GREEDY, 11.33134937286377, 15972),
+        "lazy_greedy": _figs(_QUICK_GREEDY, 11.33134937286377, 4560),
+        "stochastic_greedy": _figs(
+            [572, 1491, 1125, 234, 1416, 1311, 917, 1515], 11.31581974029541,
+            6046),
+        "sieve_streaming": _figs(_QUICK_SIEVE, 10.980342864990234, 58000),
+        "sieve_streaming_pp": _figs(_QUICK_SIEVE, 10.980342864990234, 20160),
+        "three_sieves": _figs([1946, 1349, 513, 655, 1515, 1342, 283, 1425],
+                              11.046131014823914, 211),
+        "salsa": _figs([1946, 1236, 1815, 683, 336, 924, 620, 1180],
+                       10.99489974975586, 59999),
+    },
+    "precision": {
+        "fp32": _figs(_QUICK_GREEDY, 11.33134937286377, 15972),
+        "bf16": _figs(_QUICK_GREEDY, 11.330510139465332, 15972),
+        "fp16": _figs(_QUICK_GREEDY, 11.331341743469238, 15972),
+    },
+    "greedy_host": _figs(_QUICK_GREEDY, 11.33134937286377, 15972),
+    "greedy_device": _figs(_QUICK_GREEDY, 11.331350326538086, 15972),
+    "lazy_host": _figs(_QUICK_GREEDY, 11.33134937286377, 4560),
+    "lazy_device": _figs(_QUICK_GREEDY, 11.331350326538086, 4560),
+}
+_STREAM_SIEVE = [1819, 3611, 1125, 3077, 1403, 531, 787, 1449, 1458, 2759,
+                 1981, 2882]
+STREAMING_FIGURES = {
+    "offline": _figs([215, 2183, 3281, 2780, 3142, 3918, 3198, 2906, 154,
+                      1697, 1288, 2255], 20.260622024536133, 47934),
+    "sieve_streaming": _figs(_STREAM_SIEVE, 19.603178024291992, 132031),
+    "sieve_streaming++": _figs(_STREAM_SIEVE, 19.603178024291992, 40240),
+    "salsa": _figs([1819, 3611, 3077, 1449, 1494, 368, 2237, 3526, 1182, 2414,
+                    665, 3197], 19.71817970275879, 147993),
+    "three_sieves(T=100)": _figs([672, 2292, 1819, 763, 2174, 2050, 1417,
+                                  3654, 1996, 3080, 83, 696],
+                                 19.6760151386261, 394),
+    "service": _figs([2, 3, 5, 6, 7, 9, 17, 25, 29, 34, 38, 55],
+                     19.603178024291992, 132031, n_ingested=4000,
+                     n_accepted=29),
+}
+#: Steps of the examples whose selection is an argmax per round, where a
+#: pick may flip between two near-equal gains; the sieves' accept
+#: decisions are held identical.
+ARGMAX_STEPS = ("fit", "optimizers/greedy", "optimizers/lazy_greedy",
+                "optimizers/stochastic_greedy", "precision/fp32",
+                "precision/bf16", "precision/fp16", "greedy_host",
+                "greedy_device", "lazy_host", "lazy_device", "offline")
+
+
+def _need(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def _on_card(a, dtype=None):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.asarray(a), dtype=dtype or torch.float32,
+                           device="cuda").contiguous()
+
+
+def suite_eval_case(check, n, l, k, d, *, policy="fp32", mode="fused",
+                    variant="flat", rbf=False, budget=None, seed=0):
+    """``ops.exemplar_eval`` at a shape of tests/test_kernels.py, on its
+    generator (normal + 2 payloads, ragged lengths, d_e0 = ‖v‖², rbf's
+    transform of it): the kernels' result against the plain version's on
+    the same inputs, and two_pass's W·n. Returns the (l,) result."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.precision import resolve
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    V = (rng.normal(size=(n, d)) + 2.0).astype(np.float32)
+    S = (rng.normal(size=(l, k, d)) + 2.0).astype(np.float32)
+    lengths = rng.integers(1, k + 1, size=l)
+    d_e0 = np.sum(V ** 2, axis=1)
+    gamma = 1.0 if rbf else None
+    if rbf:
+        d_e0 = 2.0 * (1.0 - np.exp(-d_e0))
+    scale = (2.0 if rbf else 1.0) * float((V * V).sum(-1).max()
+                                          + (S * S).sum(-1).max())
+    p = resolve(policy)
+    V, S, lengths, d_e0 = (_on_card(V), _on_card(S),
+                           _on_card(lengths, torch.int32), _on_card(d_e0))
+    tag = (f"suite n={n} l={l} k={k} d={d} {policy} {mode}/{variant}"
+           f"{' rbf' if rbf else ''}{f' budget={budget}' if budget else ''}")
+    got = ops.exemplar_eval(V, S, lengths, d_e0, policy=p, mode=mode,
+                            variant=variant, memory_budget_bytes=budget,
+                            rbf_gamma=gamma)
+    kw = dict(n_total=n, policy=p, rbf_gamma=gamma)
+    if mode == "fused":
+        SS = S.permute(1, 0, 2).contiguous() if variant == "flat" else S
+        check("fused_eval", got,
+              ee.fused_eval_plain(V, SS, lengths, d_e0, layout=variant, **kw),
+              policy, tag, scale=scale)
+        return got
+    Wp = ee.two_pass_eval_plain(V, S, lengths, d_e0, **kw)
+    check("two_pass_eval", got, Wp.sum(1), policy, tag + " rowsum",
+          scale=scale)
+    W = ee.two_pass_eval(V, S, lengths, d_e0,
+                         k_chunk=ops.kernel_config(k, d, p).k_chunk, **kw)
+    check("two_pass_eval", W * n, Wp * n, policy, tag + " W·n", scale=scale)
+    return got
+
+
+def suite_gain_case(check, n, m, d, B, fold, seed):
+    """Rows 4–7 at a drawn shape of tests/test_kernels.py's ranges, B
+    requests: the min fold on its normal + 1 payloads with caches around
+    the typical distance 2d (its caches in [0.5, 4] leave every gain at 0
+    once d passes a few), the max fold on payloads whose distances are
+    O(1); the first candidate is the request's most central row and the
+    winner lies half the typical distance from it, so that no request's
+    gains are all 0 or all far under the band's scale (a planted fault
+    could not show: the Gram identity's band grows with max‖v‖², which
+    outliers set at small d). Each kernel against its
+    plain version, every gain ≥ −1e-6, and each request of the batched
+    launches bit for bit its unbatched launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.functions import SIM_ALPHA, SIM_BETA
+    from repro_torch.core.precision import FP32
+    from repro_torch.kernels import marginal_gain as mg
+
+    rng = np.random.default_rng(seed)
+    sigma, shift = (1.0, 1.0) if fold == "min" else ((2 * d) ** -0.5, 0.1)
+    V = rng.normal(size=(B, n, d)) * sigma + shift
+    C = rng.normal(size=(B, m, d)) * sigma + shift
+    # the first candidate is each request's most central row, and the
+    # winner lies half the typical distance from it
+    central = np.linalg.norm(V - V.mean(1, keepdims=True), axis=2).argmin(1)
+    C[:, 0] = V[np.arange(B), central]
+    w = C[:, 0] + sigma * rng.choice([-1.0, 1.0], size=(B, d))
+    cache = (rng.uniform(0.5, 1.5, size=(B, n)) * 2 * d if fold == "min"
+             else rng.uniform(0.0, 0.8, size=(B, n)))
+    wv = rng.integers(0, 2, size=B)
+    scale = float((V * V).sum(-1).max() + (C * C).sum(-1).max())
+    V, C, w, cache, wv = map(_on_card, (V, C, w, cache, wv))
+    kw = dict(n_total=n, policy=FP32, rbf_gamma=None, fold=fold,
+              affine=(SIM_ALPHA, SIM_BETA) if fold == "max" else None)
+    tag = f"suite draw B={B} n={n} m={m} d={d} {fold}"
+    gb = mg.gain_eval_batched(V, C, cache, **kw)
+    check("gain_eval_batched", gb, mg.gain_eval_batched_plain(V, C, cache,
+                                                              **kw),
+          "fp32", tag, scale=scale)
+    ub, cb = mg.gain_update_eval_batched(V, C, cache, w, wv, **kw)
+    up, cp = mg.gain_update_eval_batched_plain(V, C, cache, w, wv, **kw)
+    check("gain_update_eval_batched", ub, up, "fp32", tag + " gains",
+          scale=scale)
+    check("gain_update_eval_batched", cb, cp, "fp32", tag + " cache",
+          scale=scale)
+    for b in range(B):
+        g = mg.gain_eval(V[b], C[b], cache[b], **kw)
+        check("gain_eval", g, mg.gain_eval_plain(V[b], C[b], cache[b], **kw),
+              "fp32", f"{tag} request {b}", scale=scale)
+        gu, cu = mg.gain_update_eval(V[b], C[b], cache[b], w[b], wv[b], **kw)
+        gp, cpl = mg.gain_update_eval_plain(V[b], C[b], cache[b], w[b], wv[b],
+                                            **kw)
+        check("gain_update_eval", gu, gp, "fp32", f"{tag} request {b} gains",
+              scale=scale)
+        check("gain_update_eval", cu, cpl, "fp32",
+              f"{tag} request {b} cache", scale=scale)
+        _need(min(float(g.min()), float(gu.min())) >= -1e-6,
+              f"{tag} request {b}: a negative gain")
+        _need(torch.equal(g, gb[b]) and torch.equal(gu, ub[b])
+              and torch.equal(cu, cb[b]),
+              f"{tag}: request {b} differs from its unbatched launch")
+
+
+def suite_sieve_case(check, r, n, P, fold, seeded, seed):
+    """Rows 8–9 at a drawn table (r ∈ [1, 65], n ∈ [1, 150]), P partitions,
+    with and without the seed row: each kernel against its plain version,
+    every gain ≥ −1e-6, each partition bit for bit its unbatched launch."""
+    import torch
+
+    from repro_torch.core.functions import SIM_ALPHA, SIM_BETA
+    from repro_torch.kernels import marginal_gain as mg
+
+    T, dv = sieve_operands((P,), r, n, fold, seed)
+    kw = dict(n_total=n, fold=fold,
+              affine=(SIM_ALPHA, SIM_BETA) if fold == "max" else None,
+              seed=T[0, 0].clone() if seeded else None)
+    tag = f"suite draw P={P} r={r} n={n} {fold}{' seed' if seeded else ''}"
+    got = mg.sieve_gain_eval_batched(T, dv, **kw)
+    check("sieve_gain_eval_batched", got,
+          mg.sieve_gain_eval_batched_plain(T, dv, **kw), "fp32", tag)
+    _need(float(got.min()) >= -1e-6, f"{tag}: a negative gain")
+    for p in range(P):
+        one = mg.sieve_gain_eval(T[p], dv[p], **kw)
+        check("sieve_gain_eval", one,
+              mg.sieve_gain_eval_plain(T[p], dv[p], **kw), "fp32",
+              f"{tag} partition {p}")
+        _need(torch.equal(one, got[p]),
+              f"{tag}: partition {p} differs from its unbatched launch")
+
+
+def suite_draws(rng):
+    """One seeded draw of part (a): a gain shape and a sieve table from the
+    reference suites' ranges."""
+    gain = dict(n=int(rng.integers(9, 151)), m=int(rng.integers(1, 41)),
+                d=int(rng.integers(1, 71)), B=int(rng.integers(1, 9)),
+                fold=str(rng.choice(["min", "max"])))
+    sieve = dict(r=int(rng.integers(1, 66)), n=int(rng.integers(1, 151)),
+                 P=int(rng.integers(1, 9)),
+                 fold=str(rng.choice(["min", "max"])),
+                 seeded=bool(rng.integers(0, 2)))
+    return gain, sieve
+
+
+def phase_suite_kernels(check) -> None:
+    """Part (a): every kernel at the reference suites' shapes."""
+    import numpy as np
+
+    from repro_torch.core.evaluator import plan_chunks
+    from repro_torch.core.precision import FP32
+
+    for shape in SUITE_SHAPES:
+        for variant in ("flat", "loop"):
+            suite_eval_case(check, *shape, variant=variant)
+    for shape in SUITE_SHAPES[:3]:
+        suite_eval_case(check, *shape, mode="two_pass", variant="loop")
+    for pol in POLICIES:
+        suite_eval_case(check, 128, 16, 5, 48, policy=pol, seed=4)
+    suite_eval_case(check, 96, 12, 4, 32, rbf=True, seed=5)
+    # the suite's 400 000-byte budget holds all 32 sets; 30 000 splits them
+    # into five chunks
+    _need(len(plan_chunks(32, 128, 6, 40, FP32, "fused", 30_000)) == 5,
+          "the 30 000-byte budget does not split (128, 32, 6, 40) in five")
+    full = suite_eval_case(check, 128, 32, 6, 40, seed=6)
+    err = 0.0
+    for budget in (400_000, 30_000):
+        chunked = suite_eval_case(check, 128, 32, 6, 40, seed=6,
+                                  budget=budget)
+        err = max(err, float((chunked - full).abs().max()))
+    _need(err <= 1e-6, f"chunked launches differ from the unchunked one by "
+                       f"{err:.3e}")
+    rng = np.random.default_rng(2025)
+    for i in range(SUITE_DRAWS):
+        gain, sieve = suite_draws(rng)
+        suite_gain_case(check, seed=i, **gain)
+        suite_sieve_case(check, seed=i, **sieve)
+    log(f"    (a) {check.cases} comparisons: SHAPES x (flat, loop), two_pass "
+        f"at SHAPES[:3], 4 policies at (128, 16, 5, 48), rbf at "
+        f"(96, 12, 4, 32), chunked (budgets 400 000 and 30 000) = unchunked "
+        f"within 1e-6 ({err:.1e}), "
+        f"{SUITE_DRAWS} drawn gain shapes (B in [1, 8]) and sieve tables, "
+        f"every gain >= -1e-6, batched = unbatched bit for bit")
+    report_kernel_checks(check)
+
+
+def suite_function(n=24, d=4, seed=0, **kw):
+    """tests/test_core_properties.py's ground set on the card (the ``cuda``
+    backend; distances without a kernel form on the ``torch`` backend)."""
+    import numpy as np
+
+    from repro_torch.core import EvalConfig, ExemplarClustering
+    from repro_torch.core.distances import MXU_ELIGIBLE
+
+    rng = np.random.default_rng(seed)
+    V = (rng.normal(size=(n, d)) + 1.5).astype(np.float32)
+    backend = "cuda" if kw.get("distance", "sqeuclidean") in MXU_ELIGIBLE \
+        else "torch"
+    return ExemplarClustering(V, EvalConfig(backend=backend, **kw),
+                              device="cuda"), V
+
+
+def suite_monotone(seed, idx, extra):
+    """f(A) ≤ f(A ∪ {e}) (Definition 3)."""
+    f, V = suite_function(seed=seed)
+    a = f.value(V[sorted(idx)])
+    ae = f.value(V[sorted(set(idx) | {extra})])
+    _need(a <= ae + 1e-5, f"monotone seed={seed}: {a} > {ae}")
+
+
+def suite_diminishing(seed, a_idx, b_extra, e):
+    """Δ(e|A) ≥ Δ(e|B) for A ⊆ B, e ∉ B (Definition 2)."""
+    import numpy as np
+
+    f, V = suite_function(seed=seed)
+    a_set = set(a_idx)
+    b_set = a_set | set(b_extra)
+    if e in b_set:
+        b_set.discard(e)
+        a_set.discard(e)
+        if not a_set:
+            a_set = {(e + 1) % 24}
+            b_set |= a_set
+    A, B = V[sorted(a_set)], V[sorted(b_set)]
+    da = f.value(np.concatenate([A, V[[e]]])) - f.value(A)
+    db = f.value(np.concatenate([B, V[[e]]])) - f.value(B)
+    _need(da >= db - 1e-4, f"diminishing returns seed={seed}: {da} < {db}")
+
+
+def suite_empty(seed):
+    import numpy as np
+
+    f, _ = suite_function(seed=seed)
+    _need(f.value(np.zeros((0, 4), np.float32)) == 0.0,
+          f"f(empty) != 0 at seed={seed}")
+
+
+def suite_greedy_bound(seed, k):
+    """Greedy ≥ (1 − 1/e)·OPT, OPT by brute force over n = 12."""
+    import itertools
+    import math
+
+    from repro_torch.core import greedy
+
+    f, V = suite_function(n=12, seed=seed)
+    res = greedy(f, k)
+    opt = float(f.value_sets([V[list(c)] for c in itertools.combinations(
+        range(12), k)]).max())
+    _need(res.value >= (1 - 1 / math.e) * opt - 1e-5,
+          f"greedy seed={seed} k={k}: {res.value} < (1 - 1/e) x {opt}")
+
+
+def suite_mincache(seed):
+    """The min-cache's value equals direct evaluation at every step."""
+    import numpy as np
+
+    f, V = suite_function(seed=seed)
+    cache = f.init_mincache()
+    chosen = []
+    for j in np.random.default_rng(seed).choice(24, size=5, replace=False):
+        chosen.append(int(j))
+        cache = f.update_mincache(cache, f.V[int(j)])
+        got, direct = f.value_from_mincache(cache), f.value(V[chosen])
+        _need(abs(got - direct) < 1e-4,
+              f"min-cache seed={seed} {chosen}: {got} vs {direct}")
+
+
+def suite_distances(seed, dist):
+    """f ≥ 0 and monotone for every distance."""
+    f, V = suite_function(seed=seed, distance=dist)
+    s3, s5 = f.value(V[:3]), f.value(V[:5])
+    _need(s3 >= -1e-6 and s5 >= s3 - 1e-5,
+          f"{dist} seed={seed}: f(V[:3]) = {s3}, f(V[:5]) = {s5}")
+
+
+def suite_sieve_bound(seed, k, eps, mode):
+    """SieveStreaming ≥ (1/2 − ε)·greedy, host and device plans."""
+    from repro_torch.core import greedy, sieve_streaming
+
+    f, _ = suite_function(seed=seed)
+    base = greedy(f, k)
+    res = sieve_streaming(f, k, eps=eps, seed=seed, mode=mode)
+    _need(len(res.indices) <= k and
+          res.value >= (0.5 - eps) * base.value - 1e-5,
+          f"sieve {mode} seed={seed} k={k} eps={eps}: {res.value} vs "
+          f"greedy {base.value}")
+
+
+def zoo_function(name, n, d, seed):
+    """tests/test_function_properties.py's zoo member (rbf) on the card."""
+    import numpy as np
+
+    from repro_torch.core import EvalConfig
+    from repro_torch.core.functions import FUNCTIONS
+
+    rng = np.random.default_rng(seed)
+    V = (rng.normal(size=(n, d)) * 0.4).astype(np.float32)
+    return FUNCTIONS[name](V, EvalConfig(distance="rbf", backend="cuda"),
+                           device="cuda")
+
+
+def suite_zoo_chain(name, n, d, seed, held_out, order):
+    """Every non-member's gain ≥ 0 along a greedy chain, and the held-out
+    candidate's gain non-increasing while it stays out of S (graph cut
+    scores members below zero, ROADMAP C.2)."""
+    import numpy as np
+
+    f = zoo_function(name, n, d, seed)
+    cache = f.init_cache()
+    members, held = [], []
+    for _ in range(min(5, n - 1)):
+        gains = f.gains_from_cache(cache, np.arange(n)).cpu().double().numpy()
+        out = np.setdiff1d(np.arange(n), members)
+        _need(gains[out].min() >= -1e-5,
+              f"{name} n={n} d={d} seed={seed}: gain {gains[out].min()}")
+        if held_out not in members:
+            held.append(gains[held_out])
+        j = max(order, key=lambda i: gains[i])
+        members.append(j)
+        cache = f.fold_winner(cache, j)
+    _need(all(b <= a + 1e-5 for a, b in zip(held, held[1:])),
+          f"{name} n={n} d={d} seed={seed}: held-out gains {held}")
+
+
+def suite_zoo_telescopes(name, n, d, seed):
+    """f(S) = f(∅) + the sum of the accepted gains along any chain."""
+    f = zoo_function(name, n, d, seed)
+    cache = f.init_cache()
+    total = f.value_from_cache(cache)
+    _need(abs(total) <= 1e-5, f"{name}: f(empty) = {total}")
+    for t in range(min(5, n - 1)):
+        j = (seed + 7 * t) % n
+        total += float(f.gains_from_cache(cache, [j])[0])
+        cache = f.fold_winner(cache, j)
+    value = f.value_from_cache(cache)
+    _need(abs(value - total) <= 5e-5,
+          f"{name} n={n} d={d} seed={seed}: {value} vs telescoped {total}")
+
+
+def suite_dyadic_tables(seed, k, eps, variant, block_size, evict=False):
+    """The device sieve's table after a stream on the 1/32 grid (n = 64,
+    every sum exact in float32): the ``cuda`` backend's bit for bit the
+    ``torch`` backend's; with ``evict``, salsa squeezed into a sieve-sized
+    table over an ascending-norm stream."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ExemplarClustering
+    from repro_torch.core import streaming as st
+
+    rng = np.random.default_rng(seed)
+    V = (rng.integers(0, 129, size=(64, 6)) / 32.0).astype(np.float32)
+    s_max = None
+    if evict:
+        order = np.argsort((V ** 2).sum(axis=1), kind="stable")
+        s_max = st.default_capacity(k, eps, "sieve")
+    else:
+        order = np.random.default_rng(seed + 1).permutation(64)
+    f = ExemplarClustering(V, device="cuda")
+    X = f.V[torch.as_tensor(order, device="cuda")]
+    engines = []
+    for backend in ("torch", "cuda"):
+        eng = st.make_sieve_engine(f, k, eps, variant=variant, mode="device",
+                                   s_max=s_max, block_size=block_size,
+                                   backend=backend)
+        eng.offer(order, X)
+        engines.append(eng)
+    et, ec = engines
+    tag = f"dyadic seed={seed} k={k} eps={eps} {variant} block={block_size}"
+    _need(et.evaluations() == ec.evaluations() and et.best() == ec.best(),
+          f"{tag}: evaluations or best sieve differ")
+    for name in st.SieveState._fields:
+        _need(torch.equal(getattr(et.state, name), getattr(ec.state, name)),
+              f"{tag}: {name} differs between the torch and cuda backends")
+
+
+def _subset(rng, n, lo, hi):
+    return sorted(int(i) for i in rng.choice(n, size=int(rng.integers(
+        lo, hi + 1)), replace=False))
+
+
+def _zoo_draw(rng, chain=False):
+    """tests/test_function_properties.py's draw: a zoo member, n, d, a
+    seed and, for the chain, a held-out candidate and a tie order."""
+    from repro_torch.core.functions import FUNCTIONS
+
+    n = int(rng.integers(6, 49))
+    out = dict(name=str(rng.choice(sorted(FUNCTIONS))), n=n,
+               d=int(rng.integers(2, 9)), seed=int(rng.integers(2**31 - 1)))
+    if chain:
+        out.update(held_out=int(rng.integers(n)),
+                   order=[int(i) for i in rng.permutation(n)])
+    return out
+
+
+#: Part (b): each invariant, its number of seeded draws (the CPU suites'
+#: example budgets) and how one draw is made.
+SUITE_INVARIANTS = (
+    ("monotone", 25, suite_monotone, lambda r: dict(
+        seed=int(r.integers(51)), idx=_subset(r, 24, 1, 6),
+        extra=int(r.integers(24)))),
+    ("diminishing returns", 25, suite_diminishing, lambda r: dict(
+        seed=int(r.integers(51)), a_idx=_subset(r, 24, 1, 4),
+        b_extra=_subset(r, 24, 1, 4), e=int(r.integers(24)))),
+    ("empty set = 0", 10, suite_empty, lambda r: dict(
+        seed=int(r.integers(31)))),
+    ("greedy >= (1 - 1/e) OPT", 8, suite_greedy_bound, lambda r: dict(
+        seed=int(r.integers(21)), k=int(r.integers(2, 4)))),
+    ("min-cache = direct", 10, suite_mincache, lambda r: dict(
+        seed=int(r.integers(21)))),
+    ("every distance", 16, suite_distances, lambda r: dict(
+        seed=int(r.integers(21)), dist=str(r.choice(
+            ["sqeuclidean", "manhattan", "cosine", "rbf"])))),
+    ("sieve >= (1/2 - eps) greedy", 20, suite_sieve_bound, lambda r: dict(
+        seed=int(r.integers(41)), k=int(r.integers(2, 4)),
+        eps=float(r.choice([0.1, 0.2])), mode=str(r.choice(["host",
+                                                            "device"])))),
+    ("zoo chain", 20, suite_zoo_chain, lambda r: _zoo_draw(r, chain=True)),
+    ("zoo telescopes", 20, suite_zoo_telescopes, _zoo_draw),
+    ("dyadic sieve tables", 20, suite_dyadic_tables, lambda r: dict(
+        seed=int(r.integers(1001)), k=int(r.integers(1, 5)),
+        eps=float(r.choice([0.1, 0.25, 0.5])),
+        variant=str(r.choice(["pp", "salsa", "sieve"])),
+        block_size=int(r.choice([1, 17, 64])))),
+    ("dyadic tables under eviction", 20, suite_dyadic_tables,
+     lambda r: dict(seed=int(r.integers(1001)), k=int(r.integers(2, 5)),
+                    eps=0.1, variant="salsa", block_size=32, evict=True)),
+)
+
+
+def phase_suite_invariants() -> dict:
+    """Part (b): the suites' invariants on the ``cuda`` backend on the
+    card, at the suites' generators and a fixed number of seeded draws.
+    Returns the draws per invariant."""
+    import numpy as np
+
+    rng = np.random.default_rng(2026)
+    done = {}
+    for name, count, fn, draw in SUITE_INVARIANTS:
+        for _ in range(count):
+            fn(**draw(rng))
+        done[name] = count
+    log(f"    (b) invariants held at every draw: {json.dumps(done)}")
+    return done
+
+
+def figure_steps(figs, prefix=""):
+    """The step names of an example's figures ("fit", "optimizers/greedy",
+    …): every dict that holds a selection."""
+    for key, val in figs.items():
+        if not isinstance(val, dict):
+            continue
+        if "indices" in val:
+            yield prefix + key
+        else:
+            yield from figure_steps(val, f"{prefix}{key}/")
+
+
+def _step(figs, step):
+    for key in step.split("/"):
+        figs = figs[key]
+    return figs
+
+
+def hold_example(what, got_all, want_all, make_f) -> dict:
+    """Each step of a twin's run on the card against the reference's
+    figures: identical selections, or at an argmax step a near tie (the two
+    picks' gains at the first diverging round within the fp32 band, from
+    ``make_f(policy)``'s function on the card); identical evaluations where
+    the selections are; values within POLICY_TOLS. Returns the count of
+    identical steps and the near ties."""
+    out = {"identical": 0, "near_ties": []}
+    for step in figure_steps(want_all):
+        got, want = _step(got_all, step), _step(want_all, step)
+        policy = step.split("/")[1] if step.startswith("precision/") \
+            else "fp32"
+        if got["indices"] == want["indices"]:
+            _need(got["evaluations"] == want["evaluations"],
+                  f"{what} {step}: evaluations {got['evaluations']} != the "
+                  f"reference's {want['evaluations']}")
+            out["identical"] += 1
+        else:
+            differ = (f"{what} {step}: {got['indices']} != the reference's "
+                      f"{want['indices']}")
+            _need(step in ARGMAX_STEPS, differ)
+            t = next(i for i, (a, b) in enumerate(zip(want["indices"],
+                                                      got["indices"]))
+                     if a != b)
+            f = make_f(policy)
+            ga, gb = pick_gains(f, want["indices"], got["indices"], t)
+            gap = gain_gap(f, want["indices"], got["indices"], t)
+            _need(abs(ga - gb) <= BANDS["fp32"] * max(1.0, abs(ga)),
+                  f"{differ}; {gap}")
+            out["near_ties"].append(f"{step}: {gap}")
+        _need(abs(got["value"] - want["value"]) <= POLICY_TOLS[policy] * max(
+            1.0, abs(want["value"])),
+              f"{what} {step}: value {got['value']} vs the reference's "
+              f"{want['value']}")
+    return out
+
+
+def example_function(n, dim, centers, seed, policy):
+    """An example's ground set on the card at ``policy`` (a near tie's
+    gains are read from it)."""
+    from repro_torch.core import EvalConfig, ExemplarClustering
+    from repro_torch.data.synthetic import blobs
+
+    X, _ = blobs(n=n, dim=dim, centers=centers, seed=seed)
+    return ExemplarClustering(X, EvalConfig(policy=policy, backend="cuda"),
+                              device="cuda")
+
+
+def phase_suite_examples() -> dict:
+    """Part (c): both twins' ``run(device="cuda")`` against the reference's
+    figures, and the card's plans against each other (device = host, CELF
+    device = host, sharded = device). Returns each twin's seconds."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+    import streaming_summarization_torch
+
+    t0 = time.perf_counter()
+    q = quickstart_torch.run("cuda")
+    seconds = {"quickstart": time.perf_counter() - t0}
+    held_q = hold_example("quickstart", q, QUICKSTART_FIGURES,
+                          functools.partial(example_function, 2000, 32, 8, 0))
+    for a, b in (("greedy_device", "greedy_host"),
+                 ("lazy_device", "lazy_host"), ("sharded", "greedy_device")):
+        _need(q[a]["indices"] == q[b]["indices"]
+              and q[a]["evaluations"] == q[b]["evaluations"]
+              and abs(q[a]["value"] - q[b]["value"])
+              <= BANDS["fp32"] * max(1.0, abs(q[b]["value"])),
+              f"quickstart on the card: {a} {q[a]} != {b} {q[b]}")
+    fit = QUICKSTART_FIGURES["fit"]
+    if q["fit"]["indices"] == fit["indices"]:
+        _need(q["fit"]["cluster_sizes"] == fit["cluster_sizes"]
+              and q["fit"]["purity"] == fit["purity"],
+              f"quickstart: clusters {q['fit']['cluster_sizes']} (purity "
+              f"{q['fit']['purity']}) != the reference's")
+    t0 = time.perf_counter()
+    s = streaming_summarization_torch.run("cuda")
+    seconds["streaming"] = time.perf_counter() - t0
+    held_s = hold_example("streaming", s, STREAMING_FIGURES,
+                          functools.partial(example_function, 4000, 64, 12,
+                                            1))
+    svc, want = s["service"], STREAMING_FIGURES["service"]
+    _need(svc["n_ingested"] == want["n_ingested"]
+          and svc["n_accepted"] == want["n_accepted"],
+          f"streaming service: {svc['n_ingested']} ingested, "
+          f"{svc['n_accepted']} accepted; the reference's "
+          f"{want['n_ingested']}, {want['n_accepted']}")
+    log(f"    (c) quickstart on cuda ({seconds['quickstart']:.1f} s): "
+        f"{held_q['identical']} of {len(list(figure_steps(QUICKSTART_FIGURES)))} "
+        f"steps identical to the reference, near ties {held_q['near_ties']}; "
+        f"device = host, CELF device = host, sharded over "
+        f"{q['sharded']['devices']} NCCL rank = device; greedy f = "
+        f"{q['greedy_device']['value']:.6f}, clusters "
+        f"{q['fit']['cluster_sizes']}, purity {q['fit']['purity']:.2%}")
+    log(f"        streaming on cuda ({seconds['streaming']:.1f} s): "
+        f"{held_s['identical']} of {len(STREAMING_FIGURES)} steps identical, "
+        f"near ties {held_s['near_ties']}; service f = {svc['value']:.6f}, "
+        f"{svc['n_ingested']} ingested, {svc['n_accepted']} accepted; "
+        f"seconds per step "
+        f"{json.dumps({k: round(v['seconds'], 3) for k, v in s.items() if isinstance(v, dict)})}")
+    return seconds
+
+
+def phase_suites() -> dict:
+    """Phase 3k: parts (a), (b) and (c); returns each part's seconds."""
+    seconds = {}
+    t0 = time.perf_counter()
+    phase_suite_kernels(Checker())
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_suite_invariants()
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seconds.update({f"c {k}": v for k, v in phase_suite_examples().items()})
+    seconds["c"] = time.perf_counter() - t0
+    return seconds
 
 
 def previous_order_gains(caches, dvec, *, seed, n_total=None, fold="min",
@@ -4300,11 +5030,17 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
     return rows
 
 
+#: Elements of the device sieve's profiled window in phase 5: the
+#: profiler's processing of the trace grows with the window, which need
+#: only show the kernel's time per launch and the card's busy share.
+SIEVE_WINDOW = 512
+
+
 def phase_end_to_end() -> dict:
     """Steady-state wall times of the main path's user calls (median of 3
     after a warm-up call), and profiles of greedy (both plans) and of a
-    2 048-element window of the device sieve: device busy time by kernel
-    against the call's wall time."""
+    ``SIEVE_WINDOW``-element window of the device sieve: device busy time
+    by kernel against the call's wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4343,14 +5079,15 @@ def phase_end_to_end() -> dict:
         "lazy_greedy_device_s": wall(lambda: lazy_greedy(f, K, mode="device")),
         "lazy_greedy_host_s": wall(lambda: lazy_greedy(f, K, mode="host")),
     }
-    prefix = _stream(f, None, 0)[:2048]
+    prefix = _stream(f, None, 0)[:SIEVE_WINDOW]
     runs = {f"greedy_{mode}": functools.partial(greedy, f, K, mode=mode)
             for mode in ("device", "host")}
-    # a window of the streaming path: 2 048 elements of the device sieve
-    runs["sieve_device_2048"] = functools.partial(
+    # a window of the streaming path: the device sieve's first elements
+    runs[f"sieve_device_{SIEVE_WINDOW}"] = functools.partial(
         sieve_streaming, f, K, order=prefix, mode="device", block_size=64)
     for name, run in runs.items():
         torch.cuda.synchronize()
+        t_all = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -4368,7 +5105,9 @@ def phase_end_to_end() -> dict:
         out[f"{name}_device_busy_ms"] = busy
         log(f"    profile {name} k={K}: wall {wall_ms:.1f} ms (profiler on), "
             f"device busy {busy:.1f} ms" + (
-                "" if busy else " (no device time in the trace: not measured)"))
+                "" if busy else " (no device time in the trace: not measured)")
+            + f"; {time.perf_counter() - t_all:.1f} s with the trace's "
+              f"processing")
         for t, count, key in by_kernel[:6]:
             log(f"      {t:9.3f} ms  {count:6d} x {t / count * 1e3:8.2f} us  "
                 f"{key[:80]}")
@@ -4400,9 +5139,30 @@ def main() -> int:
     log(f"[1] card: {card}")
     log(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}, devices {torch.cuda.device_count()}")
+    # nvcc runs in its own processes: this one runs 3g's gates 1-2 meanwhile
     t0 = time.perf_counter()
-    info = _build.build_all()
-    log(f"    built {sorted(info)} in {time.perf_counter() - t0:.1f} s")
+    built = {}
+
+    def build():
+        try:
+            built["info"] = _build.build_all()
+        except BaseException as e:      # raised below, once the gates end
+            built["error"] = e
+        built["seconds"] = time.perf_counter() - t0
+
+    builder = threading.Thread(target=build, name="nvcc")
+    builder.start()
+    log("[1b] phase 3g's fp32 gates 1-2 while the kernels build (they "
+        "launch none of the port's kernels)")
+    try:
+        phase_lm_gates()
+    finally:
+        builder.join()
+    if "error" in built:
+        raise built["error"]
+    info = built["info"]
+    log(f"    built {sorted(info)} in {built['seconds']:.1f} s; the build "
+        f"and the gates {time.perf_counter() - t0:.1f} s")
     for nm, rec in sorted(info.items()):
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", rec["log"])]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", rec["log"]))
@@ -4410,6 +5170,7 @@ def main() -> int:
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
 
     log("[2] kernels vs plain versions (and the math oracle) on the card")
+    t0 = time.perf_counter()
     check = Checker()
     phase_kernels(check)
     identical = phase_kernels_batched(check)
@@ -4418,16 +5179,21 @@ def main() -> int:
     report_kernel_checks(check)
     phase_invariance()
     log(f"    batched kernels: {identical} requests bit for bit equal to "
-        f"their unbatched launches (gains and folded cache)")
+        f"their unbatched launches (gains and folded cache); phase "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("[3] main path at the paper's size")
+    t0 = time.perf_counter()
     ops.LAUNCHES.clear()
     walls = phase_main_path()
     main_launches = dict(ops.LAUNCHES)
-    log(f"    launches: {json.dumps(main_launches)}")
+    log(f"    launches: {json.dumps(main_launches)}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
     log("[3b] multi-tenant serving (SelectionService, run_selection_batch)")
+    t0 = time.perf_counter()
     serve_walls, V64, Vpaper, serve_launches, serve_shapes = phase_serving()
     walls.update(serve_walls)
+    log(f"    phase {time.perf_counter() - t0:.1f} s")
     log("[3c] streaming at the paper's size (sieve family, ingestion "
         "services)")
     t0 = time.perf_counter()
@@ -4485,7 +5251,7 @@ def main() -> int:
                              "gain_eval on a rank")
     peaks = peaks_for(torch.cuda.get_device_name(0))
     log(f"[3g] LM training with curation ({LM_TRAIN_FULL['arch']} at full "
-        f"width, bf16; gates 1-2 at LM_CUT, fp32)")
+        f"width, bf16; gates 1-2 at LM_CUT, fp32, ran in [1b])")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ops.LAUNCHES.clear()
@@ -4522,6 +5288,20 @@ def main() -> int:
     log(f"    report: {json.dumps(dry)}")
     log(f"    phase {dry['seconds']:.1f} s (the meta run "
         f"{dry['meta_run_s']:.1f} s)")
+    log("[3k] the reference's property suites and top-level examples on the "
+        "card ((a) kernels at the suites' shapes, (b) the invariants on the "
+        "cuda backend, (c) both example twins)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ops.LAUNCHES.clear()
+    suite_seconds = phase_suites()
+    suite_launches = dict(ops.LAUNCHES)
+    log(f"    launches over the phase: {json.dumps(suite_launches)}; seconds "
+        f"{json.dumps({k: round(v, 1) for k, v in suite_seconds.items()})}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    missing = [k for k in KERNELS if not suite_launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 3k launched no {missing}")
     # each path's own launches: the main path's four kernels, the serving
     # path's two, the streaming path's two
     launches = {k: main_launches.get(k, 0) for k in MAIN_KERNELS}
@@ -4535,6 +5315,7 @@ def main() -> int:
         raise AssertionError("the LM training path launched no gain_eval")
 
     log("[4] timing at the main path's shapes (fp32, CUDA events)")
+    t0 = time.perf_counter()
     rows = phase_timing(peaks, V64, Vpaper, serve_shapes)
     del V64, Vpaper
     kernels = []
@@ -4561,6 +5342,9 @@ def main() -> int:
             "bound_by": bound_by, "library_ms": r["library_ms"],
             # launches in the contract phase (3e)
             "audit_launches": audit_launches.get(name, 0),
+            # launches over phase 3k (the suites' shapes and invariants,
+            # the example twins)
+            "suites_launches": suite_launches[name],
             # launches over phase 3g's train() (curated qwen3-0.6b)
             **({"train_launches": train_report["gain_eval_launches"],
                 # per rank of phase 3i's curated window on the mesh
@@ -4570,9 +5354,12 @@ def main() -> int:
             **({"mesh_launches": [mesh_launches[q].get(name, 0)
                                   for q in sorted(mesh_launches)]}
                if name in MESH_KERNELS else {})})
-    log(f"    main-path first-call wall times (s): {json.dumps(walls)}")
+    log(f"    main-path first-call wall times (s): {json.dumps(walls)}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
     log("[5] end to end at the paper's size (steady state)")
-    log(f"    {json.dumps(phase_end_to_end())}")
+    t0 = time.perf_counter()
+    log(f"    {json.dumps(phase_end_to_end())}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
     log(f"    total {time.perf_counter() - t_start:.1f} s")
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

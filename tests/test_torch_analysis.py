@@ -487,8 +487,7 @@ def _imports(path: Path) -> set:
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(ROOT).as_posix()
     for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-              ROOT / "examples" / "serve_lm_torch.py",
-              ROOT / "examples" / "train_lm_curated_torch.py"]))
+              *(ROOT / "examples").glob("*_torch.py")]))
 def test_port_imports_no_jax_and_no_reference(path):
     bad = {m for m in _imports(ROOT / path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")}

@@ -103,10 +103,12 @@ def test_policies_and_resolve_error_text():
     assert str(te.value) == str(je.value)
 
 
-@pytest.mark.parametrize("base_len", [None, 2])
-def test_pack_base_plus_candidates_matches_reference(base_len):
+@pytest.mark.parametrize("base_len,base_rows", [
+    pytest.param(None, 4, id="None"), pytest.param(2, 4, id="2"),
+    pytest.param(None, 0, id="empty-base")])
+def test_pack_base_plus_candidates_matches_reference(base_len, base_rows):
     rng = np.random.default_rng(8)
-    base = rng.normal(size=(4, 5)).astype(np.float32)
+    base = rng.normal(size=(base_rows, 5)).astype(np.float32)
     cands = rng.normal(size=(6, 5)).astype(np.float32)
     got = tms.pack_base_plus_candidates(torch.from_numpy(base),
                                         torch.from_numpy(cands), base_len)
@@ -117,19 +119,33 @@ def test_pack_base_plus_candidates_matches_reference(base_len):
 
 
 def test_pack_sets_matches_reference():
+    """Ragged sets, equal sizes (no blank fields: greedy's sets, the paper's
+    observation) and a chunk view, as tests/test_multiset.py packs them."""
     rng = np.random.default_rng(9)
-    sets = [rng.normal(size=(kj, 7)).astype(np.float32) for kj in (3, 1, 5)]
-    got = tms.pack_sets(sets, device="cpu")
-    ref = jms.pack_sets(sets)
-    np.testing.assert_array_equal(got.data.numpy(), np.asarray(ref.data))
-    np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(ref.lengths))
-    np.testing.assert_array_equal(got.mask().numpy(), np.asarray(ref.mask()))
-    assert got.pad_fraction() == pytest.approx(ref.pad_fraction())
-    assert got.nbytes() == ref.nbytes()
-    assert got.slice_sets(1, 3).num_sets == 2
+    for sets in ([rng.normal(size=(kj, 7)).astype(np.float32)
+                  for kj in (3, 1, 5)],
+                 [np.ones((4, 3), np.float32) for _ in range(7)],
+                 [np.full((2, 3), i, np.float32) for i in range(10)]):
+        got = tms.pack_sets(sets, device="cpu")
+        ref = jms.pack_sets(sets)
+        np.testing.assert_array_equal(got.data.numpy(), np.asarray(ref.data))
+        np.testing.assert_array_equal(got.lengths.numpy(),
+                                      np.asarray(ref.lengths))
+        np.testing.assert_array_equal(got.mask().numpy(),
+                                      np.asarray(ref.mask()))
+        assert got.pad_fraction() == pytest.approx(ref.pad_fraction())
+        assert got.nbytes() == ref.nbytes()
+        sub, jsub = got.slice_sets(1, 3), ref.slice_sets(1, 3)
+        assert sub.num_sets == jsub.num_sets == 2
+        np.testing.assert_array_equal(sub.data.numpy(), np.asarray(jsub.data))
+    assert tms.pack_sets(sets[:7], device="cpu").pad_fraction() == 0.0
+    sub = tms.pack_sets(sets, device="cpu").slice_sets(4, 7)
+    assert sub.num_sets == 3
+    np.testing.assert_array_equal(sub.data[0].numpy(),
+                                  np.full((2, 3), 4, np.float32))
     with pytest.raises(ValueError):
         tms.pack_sets([], device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="inconsistent"):
         tms.pack_sets([np.zeros((2, 3)), np.zeros((2, 4))], device="cpu")
 
 
@@ -183,12 +199,13 @@ def test_chunking_error_and_cpu_probe():
 
 @pytest.mark.parametrize("policy", ["fp32", "bf16", "fp16_strict"])
 def test_kernel_config_fits_hopper_shared_memory(policy):
-    """The paper's sweep (k ∈ [10, 500], d up to 1024) always gets a k
-    chunk that fits the 227 KB budget; the whole S tile of the paper's
-    shape (k=10, d=100) stays resident."""
+    """The paper's sweep (k ∈ [10, 500], d up to 1024) and the reference
+    budget test's (k, d) (tests/test_kernels.py) always get a k chunk that
+    fits the 227 KB budget; the whole S tile of the paper's shape (k=10,
+    d=100) stays resident."""
     pol = tresolve(policy)
-    for k in (10, 45, 500):
-        for d in (100, 129, 1024):
+    for k in (1, 10, 45, 500):
+        for d in (100, 128, 129, 256, 1024):
             cfg = tops.kernel_config(k, d, pol)
             assert 1 <= cfg.k_chunk <= k
             assert cfg.smem_bytes == tops.smem_bytes(cfg.k_chunk, d, pol)
@@ -373,9 +390,12 @@ def test_port_imports_no_jax_in_a_fresh_process():
 
 
 def test_chip_smoke_and_port_sources_import_no_jax():
-    files = [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_lm_torch.py",
-             ROOT / "examples" / "train_lm_curated_torch.py",
+    files = [ROOT / "chip_smoke.py",
+             *sorted((ROOT / "examples").glob("*_torch.py")),
              *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]
+    assert {"quickstart_torch.py", "streaming_summarization_torch.py",
+            "serve_lm_torch.py", "train_lm_curated_torch.py"} <= {
+        p.name for p in files}
     for path in files:
         bad = [m for m in _imports(ast.parse(path.read_text())) if _foreign(m)]
         assert not bad, (path, bad)

@@ -11,8 +11,15 @@ need not have them. Bands are those of chip_smoke.py, on the error divided by
 max(1, max|plain|, max‖v‖² + max‖s‖²) (the Gram identity loses
 eps·(‖v‖² + ‖s‖²) absolute however small the distance); the max fold runs on
 payloads whose distances are O(1), where the library's similarity
-relu(SIM_ALPHA + SIM_BETA·d) is not flat.
+relu(SIM_ALPHA + SIM_BETA·d) is not flat. The tests at the end run
+chip_smoke.py's phase 3k under hypothesis (derandomized, no database):
+every kernel at the reference suites' shapes and drawn shapes, the
+suites' invariants on the ``cuda`` backend, and each example twin on the
+card against its run on the CPU.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -23,6 +30,12 @@ cap_torch_threads()
 
 from repro_torch.core.functions import SIM_ALPHA, SIM_BETA  # noqa: E402
 from repro_torch.core.precision import resolve  # noqa: E402
+from hypothesis import HealthCheck, given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
 
 BANDS = {"fp32": 1e-5, "bf16": 1e-5, "fp16": 1e-5, "fp16_strict": 1e-6}
 
@@ -661,3 +674,100 @@ def test_train_step_on_the_card_equals_the_cpu(dev):
     for (p, a), (_, b) in zip(tree_leaves(lm_train_state_to_arrays(card)),
                               tree_leaves(lm_train_state_to_arrays(cpu))):
         assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-30), p
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phase 3k under hypothesis: the reference suites' shapes
+# and invariants, and the example twins
+# ---------------------------------------------------------------------------
+
+
+def _suite_settings(n):
+    """Derandomized, no example database; ``dev`` only skips."""
+    return settings(max_examples=n, deadline=None, derandomize=True,
+                    database=None,
+                    suppress_health_check=[HealthCheck.function_scoped_fixture])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["flat", "loop"])
+@pytest.mark.parametrize("shape", chip_smoke.SUITE_SHAPES)
+def test_suite_shapes_fused_eval_on_the_card(dev, shape, variant):
+    chip_smoke.suite_eval_case(chip_smoke.Checker(), *shape, variant=variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", chip_smoke.SUITE_SHAPES[:3])
+def test_suite_shapes_two_pass_eval_on_the_card(dev, shape):
+    chip_smoke.suite_eval_case(chip_smoke.Checker(), *shape, mode="two_pass",
+                               variant="loop")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(BANDS))
+def test_suite_policy_sweep_on_the_card(dev, policy):
+    chip_smoke.suite_eval_case(chip_smoke.Checker(), 128, 16, 5, 48,
+                               policy=policy, seed=4)
+
+
+@pytest.mark.cuda
+def test_suite_rbf_and_chunks_on_the_card(dev):
+    check = chip_smoke.Checker()
+    chip_smoke.suite_eval_case(check, 96, 12, 4, 32, rbf=True, seed=5)
+    full = chip_smoke.suite_eval_case(check, 128, 32, 6, 40, seed=6)
+    for budget in (400_000, 30_000):
+        chunked = chip_smoke.suite_eval_case(check, 128, 32, 6, 40, seed=6,
+                                             budget=budget)
+        assert float((chunked - full).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@given(n=st.integers(9, 150), m=st.integers(1, 40), d=st.integers(1, 70),
+       B=st.integers(1, 8), fold=st.sampled_from(["min", "max"]),
+       seed=st.integers(0, 2**31 - 1))
+@_suite_settings(24)
+def test_suite_drawn_gain_shapes_on_the_card(dev, n, m, d, B, fold, seed):
+    chip_smoke.suite_gain_case(chip_smoke.Checker(), n, m, d, B, fold, seed)
+
+
+@pytest.mark.cuda
+@given(r=st.integers(1, 65), n=st.integers(1, 150), P=st.integers(1, 8),
+       fold=st.sampled_from(["min", "max"]), seeded=st.booleans(),
+       seed=st.integers(0, 2**31 - 1))
+@_suite_settings(24)
+def test_suite_drawn_sieve_tables_on_the_card(dev, r, n, P, fold, seeded,
+                                              seed):
+    chip_smoke.suite_sieve_case(chip_smoke.Checker(), r, n, P, fold, seeded,
+                                seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [s[0] for s in chip_smoke.SUITE_INVARIANTS])
+@given(seed=st.integers(0, 2**32 - 1))
+@_suite_settings(8)
+def test_suite_invariant_on_the_cuda_backend(dev, name, seed):
+    """Each of phase 3k's invariants at draws made from a hypothesis seed
+    (the phase's own draw of its arguments)."""
+    _, _, check, draw = next(s for s in chip_smoke.SUITE_INVARIANTS
+                             if s[0] == name)
+    check(**draw(np.random.default_rng(seed)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("example", ["quickstart_torch",
+                                     "streaming_summarization_torch"])
+def test_example_twin_on_the_card_equals_its_cpu_run(dev, example):
+    """The twin's run on the card against its run on the CPU, under phase
+    3k's rules (identical selections or an argmax near tie within the fp32
+    band, identical evaluations where the selections are, values within
+    POLICY_TOLS)."""
+    import importlib
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    mod = importlib.import_module(example)
+    ground = ((2000, 32, 8, 0) if example == "quickstart_torch"
+              else (4000, 64, 12, 1))
+    held = chip_smoke.hold_example(
+        example, mod.run("cuda"), mod.run("cpu"),
+        lambda policy: chip_smoke.example_function(*ground, policy))
+    assert held["identical"] + len(held["near_ties"]) >= 6
