@@ -8,9 +8,12 @@ Phases (any failure exits non-zero before the result lines):
 1. Environment and build: the card's name and power limit, torch/CUDA
    versions, and the build of every CUDA source under
    ``src/repro_torch/csrc`` (one nvcc each, in parallel) with the
-   compiler's register/spill report. While nvcc runs, this process runs
-   phase 3g's fp32 gates 1 and 2 (below), which launch none of the port's
-   kernels.
+   compiler's register/spill report, and a gate on the built code
+   (``cuobjdump -sass``): every bf16 and fp16 instance of the gain and
+   exemplar-eval kernels holds tensor-core instructions (HGMMA, or HMMA),
+   and no fp32 or fp16_strict instance, second pass or sieve kernel holds
+   any. While nvcc runs, this process runs phase 3g's fp32 gates 1 and 2
+   (below), which launch none of the port's kernels.
 2. Every kernel against its plain PyTorch version on the card, and (at
    the float32-accumulating policies) against the math oracle of
    ``kernels/ref.py``, on ragged shapes, for every precision policy, both
@@ -32,14 +35,17 @@ Phases (any failure exits non-zero before the result lines):
    SEG + 1, 2·SEG + 1) and at n = 50 000, all four policies; then their
    column invariance, bit for bit: ``gain_eval`` / ``gain_update_eval`` at
    m ∈ {1, 33, 256, 257} against the same candidates of the m = 50 000
-   launch, ``fused_eval`` on 97 sets against the l = 5 000 launch, at fp32
-   and fp16_strict.
+   launch, ``fused_eval`` on 97 sets against the l = 5 000 launch, at
+   every policy (bf16 and fp16 on the tensor cores).
 3. The main path at the paper's size (N=50 000, l=5 000, k=10, dim=100):
    multiset evaluation in fused/flat, fused/loop and two_pass against the
    ``torch`` backend; greedy, stochastic and lazy greedy on the device plan
    against the host plan (identical indices and evaluation counts);
-   multiset greedy against mincache greedy. Kernel launches are counted
-   over this phase only.
+   multiset greedy against mincache greedy; then the paper's half-precision
+   workload at fp16 and bf16 (the tensor-core kernels): ``evaluate_multiset``
+   fused/flat against the ``torch`` backend at the same policy (relative
+   1e-4), device greedy and lazy greedy against host mode. Kernel launches
+   are counted over this phase only.
    Then the serving path: 64 tenants of (8 192, 100) through
    ``SelectionService`` (64 dense requests with ragged k, 16 lazy, 16
    stochastic) and one paper-size bucket (``run_selection_batch``, four
@@ -264,9 +270,12 @@ Phases (any failure exits non-zero before the result lines):
    (65, 50 000) and (16, 35, 50 000), each twice: warm (back-to-back
    launches, the table in the 50 MB L2 where it fits) and cold (128 MB
    read through the L2 before each launch, left out of the time); the
-   HBM bound is a bound on the cold time. ``fused_eval``, ``gain_eval`` and
-   ``gain_update_eval`` are also timed at bf16 and fp16 (``bf16_ms``,
-   ``fp16_ms``).
+   HBM bound is a bound on the cold time. Then rows 1-7 (and CELF's m = 256
+   re-score) at bf16 and fp16, on the tensor cores, each held to its plain
+   version at ``MAIN_REL`` and timed beside it, beside cuBLAS in the
+   compute dtype and beside their bound: the largest of the products at
+   the dense bf16/fp16 peak, the epilogue's fp32 operations at the SIMT
+   rate and the bytes.
 
 5. Steady-state wall times of the main path's calls, and profiles (device
    busy time by kernel against wall time) of greedy in both plans and of a
@@ -296,8 +305,11 @@ ROOT = Path(__file__).resolve().parent
 #: absolute however small the distance, and the rbf transform scales that
 #: by at most g = 2γ (g = 1 for sqeuclidean). Kernel and plain version round
 #: the payload alike and, but for fp16_strict, both accumulate in fp32, so
-#: bf16 and fp16 keep the fp32 band; on the H100 the largest reading of the
-#: three was 0.18 of it (fused_eval, bf16, d = 1024). fp16_strict accumulates
+#: bf16 and fp16 keep the fp32 band: their tensor-core kernels sum the same
+#: products in another fp32 order, and any such order of a Gram sum stays
+#: within half the band up to d = 1 024 (tests/test_torch_tensor_core.py).
+#: On the H100 the largest reading of the three was 0.45 of it (fused_eval,
+#: fp16, d = 1024, on the tensor cores; 0.18 on the SIMT tile). fp16_strict accumulates
 #: in fp16 in an order that the plain version follows step for step, so its
 #: distances agree bit for bit and only the fp32 sum over n and the 1/n
 #: scaling differ: its largest reading was 2.9e-8 of the scale, and its band
@@ -418,6 +430,63 @@ class Checker:
         if err / band >= self.of_band.get(key, (-1.0, ""))[0]:
             self.of_band[key] = (err / band, what)
         self.cases += 1
+
+
+#: The tensor-core instructions a kernel instance may hold (wgmma is HGMMA
+#: in SASS; mma.sync HMMA).
+TC_SASS = ("HGMMA", "HMMA")
+#: The sources whose kernels phase 1's SASS gate reads (an instance's
+#: policy P is the template argument after the input type in its mangled
+#: name; the sieve kernels and the second pass take none).
+TC_GATED = ("exemplar_eval", "marginal_gain", "sieve_gain")
+
+
+def sass_tensor_cores(lib_path) -> dict:
+    """Tensor-core instructions per kernel instance of one built library
+    (``cuobjdump -sass``): {mangled name: count}."""
+    from repro_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and any(op in line for op in TC_SASS):
+            counts[fn] += 1
+    return counts
+
+
+def sass_gate() -> dict:
+    """Phase 1's gate on the built kernels: every bf16 and fp16 instance
+    (P = 1, 2) of the gain and exemplar-eval kernels holds tensor-core
+    instructions, and no other kernel (their fp32 and fp16_strict
+    instances, the row pass, the second pass, the sieve kernels) holds any.
+    Returns, per source and policy (the others as "other"), the instances
+    and the fewest and most tensor-core instructions."""
+    from repro_torch.kernels import _build
+
+    names = {0: "fp32", 1: "bf16", 2: "fp16", 3: "fp16_strict"}
+    report = {}
+    for src in TC_GATED:
+        counts = sass_tensor_cores(_build._lib_path(src))
+        if not counts:
+            raise AssertionError(f"cuobjdump found no kernel in {src}")
+        for fn, n in counts.items():
+            m = re.search(r"_Z\d+(?:exemplar|gain)(?:_tc)?_kernelI"
+                          r"(?:f|13__nv_bfloat16|6__half)Li(\d)E", fn)
+            pol = names[int(m.group(1))] if m else "other"
+            if (pol in ("bf16", "fp16")) != (n > 0):
+                raise AssertionError(
+                    f"{src}: {fn} ({pol}) holds {n} tensor-core instructions")
+            lo, hi, k = report.get((src, pol), (n, n, 0))
+            report[src, pol] = (min(lo, n), max(hi, n), k + 1)
+    return {f"{src} {pol}": {"instances": k, "tensor_core_instructions":
+                             [lo, hi]}
+            for (src, pol), (lo, hi, k) in sorted(report.items())}
 
 
 def phase_kernels(check: Checker):
@@ -760,8 +829,9 @@ def phase_invariance(N=50_000, L=5_000, K=10, DIM=100) -> dict:
     column's bits depend on n and its own inputs only: a ``gain_eval`` /
     ``gain_update_eval`` launch at m ∈ {1, 33, 256, 257} must give the same
     candidates' columns of the m = N launch bit for bit, and ``fused_eval``
-    on 97 of the sets the same sets' values of the l = L launch, at fp32 and
-    fp16_strict. Returns the number of columns compared per kernel."""
+    on 97 of the sets the same sets' values of the l = L launch, at every
+    policy (the SIMT tile at fp32 and fp16_strict, the tensor cores at bf16
+    and fp16). Returns the number of columns compared per kernel."""
     import numpy as np
     import torch
 
@@ -791,7 +861,7 @@ def phase_invariance(N=50_000, L=5_000, K=10, DIM=100) -> dict:
                                  f"columns differ from the full launch")
         compared[name] += got.numel()
 
-    for pol in ("fp32", "fp16_strict"):
+    for pol in POLICIES:
         p = resolve(pol)
         cache = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
         kw = dict(n_total=N, policy=p)
@@ -817,8 +887,8 @@ def phase_invariance(N=50_000, L=5_000, K=10, DIM=100) -> dict:
                            lengths[idx].contiguous(), d_e0, **fkw), full[idx])
     log(f"    column invariance: every column bit for bit its full launch's "
         f"({json.dumps(compared)} columns; gains at m in (1, 33, 256, 257) "
-        f"against m={N}, fused_eval on 97 sets against l={L}; fp32 and "
-        f"fp16_strict)")
+        f"against m={N}, fused_eval on 97 sets against l={L}; "
+        f"{', '.join(POLICIES)})")
     return compared
 
 
@@ -983,6 +1053,41 @@ def phase_main_path():
         DEVICE_REFS[name] = res["device"]
         log(f"    wall: device {walls[f'{name} device']:.3f} s, host "
             f"{walls[f'{name} host']:.3f} s")
+
+    # the paper's half-precision workload: the same calls on the tensor-core
+    # kernels, multiset evaluation held to the torch backend at the same
+    # policy, device greedy and CELF to host mode
+    for pol in ("fp16", "bf16"):
+        ref_h = ExemplarClustering(V, EvalConfig(
+            policy=pol, memory_budget_bytes=4 << 30)).loss_multi(packed)
+        fh = ExemplarClustering(V, EvalConfig(backend="cuda", policy=pol))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fh.loss_multi(packed)
+        torch.cuda.synchronize()
+        key = f"evaluate_multiset fused/flat {pol}"
+        walls[key] = time.perf_counter() - t0
+        rel = float((got - ref_h).abs().max() / ref_h.abs().max())
+        if not (got.shape == (L,) and bool(torch.isfinite(got).all())
+                and rel <= 1e-4):
+            raise AssertionError(f"{key}: relative error {rel:.3e} vs torch")
+        log(f"  {key} l={L} k={K}: relative error vs torch backend "
+            f"{rel:.3e}; {walls[key] * 1e3:.1f} ms")
+        fg = ExemplarClustering(X, EvalConfig(backend="cuda", policy=pol))
+        for name, run in (
+                ("greedy", lambda mode: greedy(fg, K, mode=mode)),
+                ("lazy_greedy", lambda mode: lazy_greedy(fg, K, mode=mode))):
+            res = {}
+            for mode in ("device", "host"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[mode] = run(mode)
+                torch.cuda.synchronize()
+                walls[f"{name} {mode} {pol}"] = time.perf_counter() - t0
+            same_selection(f"{name} {pol} n={N} k={K}", res["device"],
+                           res["host"], fg)
+            log(f"    wall: device {walls[f'{name} device {pol}']:.3f} s, "
+                f"host {walls[f'{name} host {pol}']:.3f} s")
 
     Xs = X[:8192]
     fs = ExemplarClustering(Xs, EvalConfig(backend="cuda"))
@@ -4765,11 +4870,13 @@ def device_ms(fn, reps: int, flush=None) -> float:
     return total / 1e3 / reps
 
 
-def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
+def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> tuple:
     """Per-kernel times at the main path's shapes (fp32 policy); the
     batched kernels held against their plain versions at every shape in
     ``serve_shapes`` (on the serving phase's payloads ``V64`` and
-    ``Vpaper``) and timed at B = 64, n = m = 8 192."""
+    ``Vpaper``) and timed at B = 64, n = m = 8 192. Then rows 1-7 (and
+    CELF's re-score) at bf16 and fp16, on the tensor cores. Returns the
+    fp32 rows and {(kernel, policy): row} of the half policies."""
     import torch
 
     from repro_torch.core.distances import fp32_is_ieee
@@ -4805,6 +4912,19 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
         t_bytes = nbytes / peaks["bw"] * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
+    def tc_bound(flops, epilogue_ops, nbytes):
+        """The tensor-core instances' bound: the largest of the products at
+        the dense bf16/fp16 peak, the epilogue's fp32 operations at the SIMT
+        rate (one a lane a cycle: half the FMA-counted fp32 peak) and the
+        bytes, with the one that binds. The epilogue counts what the kernels
+        do: five operations a gain cell (min fold, sqeuclidean), three an
+        exemplar-eval cell and four a (row, set), eight a row's fold."""
+        t = {"tensor-core operations": flops / peaks["half"] * 1e3,
+             "fp32 operations": epilogue_ops / (peaks["fp32"] / 2) * 1e3,
+             "bytes": nbytes / peaks["bw"] * 1e3}
+        by = max(t, key=t.get)
+        return t[by], by
+
     eval_flops = 2.0 * N * int(lengths.sum()) * DIM
     eval_in = 4 * (N * DIM + L * K * DIM + L + N)
     gain_flops = 2.0 * N * N * DIM
@@ -4819,7 +4939,7 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
 
     kw = dict(n_total=N, policy=FP32)
     rel = {}
-    extra_times = {}
+    half = {}
 
     def agree(name, got, ref, what):
         """The kernel against its plain version at the main path's shapes:
@@ -4880,20 +5000,6 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
     rows["gain_eval"]["top256_library_ms"] = cuda_ms(lambda: Vb @ top.T, 20)
     rows["gain_eval"]["top256_bound_ms"] = bound(
         2.0 * N * 256 * DIM, 4 * (N * DIM + 256 * DIM + N + 256))[0]
-    # the half policies run the same SIMT kernels (payload rounded as it is
-    # staged); their tensor-core bound is another PR's yardstick
-    for pol in ("bf16", "fp16"):
-        ph = resolve(pol)
-        kwh = dict(n_total=N, policy=ph)
-        kch = ops.kernel_config(K, DIM, ph).k_chunk
-        extra_times[f"fused_eval {pol}_ms"] = cuda_ms(
-            lambda: ee.fused_eval(V, Sk, lengths, d_e0, k_chunk=kch,
-                                  layout="flat", **kwh), R)
-        extra_times[f"gain_eval {pol}_ms"] = cuda_ms(
-            lambda: mg.gain_eval(Vb, Vb, cache, **kwh), R)
-        extra_times[f"gain_update_eval {pol}_ms"] = cuda_ms(
-            lambda: mg.gain_update_eval(Vb, Vb, cache, w, wv,
-                                        cache_out=out_cache, **kwh), R)
     rows["gain_update_eval"] = dict(
         **kernel_ms(lambda: mg.gain_update_eval(Vb, Vb, cache, w, wv,
                                                 cache_out=out_cache, **kw)),
@@ -4966,6 +5072,120 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
         library_ms=bmm_ms,
         bound=bound(batched_flops + 2.0 * Bq * Nq * DIM,
                     batched_in + 4 * Bq * (DIM + 1) + 4 * 2 * Bq * Nq))
+    for pol in ("bf16", "fp16"):
+        p = resolve(pol)
+        kwbh = dict(n_total=Nq, policy=p)
+        cacheh = torch.stack([e0_distances(v, None, "sqeuclidean", p)
+                              for v in V64]).float().contiguous()
+        agree("gain_eval_batched",
+              mg.gain_eval_batched(V64, V64, cacheh, **kwbh),
+              mg.gain_eval_batched_plain(V64, V64, cacheh, **kwbh),
+              f"B={Bq} m={Nq} {pol}")
+        g, nc = mg.gain_update_eval_batched(V64, V64, cacheh, w64, wv64,
+                                            **kwbh)
+        gp, ncp = mg.gain_update_eval_batched_plain(V64, V64, cacheh, w64,
+                                                    wv64, **kwbh)
+        agree("gain_update_eval_batched", g, gp, f"gains B={Bq} m={Nq} {pol}")
+        agree("gain_update_eval_batched", nc, ncp, f"cache B={Bq} n={Nq} {pol}")
+        del g, nc, gp, ncp
+        V64h = V64.to(p.compute_dtype)
+        bmmh = cuda_ms(lambda: torch.bmm(V64h, V64h.transpose(1, 2)), R)
+        del V64h
+        half[("gain_eval_batched", pol)] = dict(
+            **kernel_ms(lambda: mg.gain_eval_batched(V64, V64, cacheh,
+                                                     **kwbh)),
+            plain_ms=cuda_ms(lambda: mg.gain_eval_batched_plain(
+                V64, V64, cacheh, **kwbh), R),
+            library_ms=bmmh,
+            bound=tc_bound(batched_flops, 5 * Bq * Nq * Nq,
+                           batched_in + 4 * Bq * Nq))
+        half[("gain_update_eval_batched", pol)] = dict(
+            **kernel_ms(lambda: mg.gain_update_eval_batched(
+                V64, V64, cacheh, w64, wv64, cache_out=out64, **kwbh)),
+            plain_ms=cuda_ms(lambda: mg.gain_update_eval_batched_plain(
+                V64, V64, cacheh, w64, wv64, **kwbh), R),
+            library_ms=bmmh,
+            bound=tc_bound(batched_flops + 2.0 * Bq * Nq * DIM,
+                           5 * Bq * Nq * Nq + 8 * Bq * Nq,
+                           batched_in + 4 * Bq * (DIM + 1) + 4 * 2 * Bq * Nq))
+    # rows 1-7 at bf16 and fp16: the tensor-core kernels, on the main path's
+    # fp32 operands (rounded as they are staged), held to their plain
+    # versions as above; library: cuBLAS in the compute dtype on operands
+    # converted beforehand (the product alone)
+    # the paper-size winner (by here w and wv hold the serving shapes')
+    w1, wv1 = Vb[123].contiguous(), torch.ones((), device=dev)
+    for pol in ("bf16", "fp16"):
+        p = resolve(pol)
+        cd = p.compute_dtype
+        kwh = dict(n_total=N, policy=p)
+        kch = ops.kernel_config(K, DIM, p).k_chunk
+        d_e0h = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+        cacheh = e0_distances(Vb, None, "sqeuclidean", p).float().contiguous()
+        Vh, Sflath, Vbh = V.to(cd), Sflat.to(cd), Vb.to(cd)
+        eval_lib = cuda_ms(lambda: Vh @ Sflath.T, R)
+        gain_lib = cuda_ms(lambda: Vbh @ Vbh.T, R)
+        for layout, SS in (("flat", Sk), ("loop", S)):
+            agree("fused_eval",
+                  ee.fused_eval(V, SS, lengths, d_e0h, k_chunk=kch,
+                                layout=layout, **kwh),
+                  ee.fused_eval_plain(V, SS, lengths, d_e0h, layout=layout,
+                                      **kwh), f"l={L} {layout} {pol}")
+        agree("two_pass_eval", ee.two_pass_eval(V, S, lengths, d_e0h,
+                                                k_chunk=kch, **kwh),
+              ee.two_pass_eval_plain(V, S, lengths, d_e0h, **kwh),
+              f"W ({L}, {N}) {pol}")
+        for C in (Vb, top):
+            agree("gain_eval", mg.gain_eval(Vb, C, cacheh, **kwh),
+                  mg.gain_eval_plain(Vb, C, cacheh, **kwh),
+                  f"m={C.shape[0]} {pol}")
+        g, nc = mg.gain_update_eval(Vb, Vb, cacheh, w1, wv1, **kwh)
+        gp, ncp = mg.gain_update_eval_plain(Vb, Vb, cacheh, w1, wv1, **kwh)
+        agree("gain_update_eval", g, gp, f"gains m={N} {pol}")
+        agree("gain_update_eval", nc, ncp, f"cache n={N} {pol}")
+        del g, nc, gp, ncp
+        cells = N * int(lengths.sum())
+        half[("fused_eval", pol)] = dict(
+            **kernel_ms(lambda: ee.fused_eval(V, Sk, lengths, d_e0h,
+                                              k_chunk=kch, layout="flat",
+                                              **kwh)),
+            plain_ms=cuda_ms(lambda: ee.fused_eval_plain(
+                V, Sk, lengths, d_e0h, layout="flat", **kwh), R),
+            library_ms=eval_lib,
+            bound=tc_bound(eval_flops, 3 * cells + 4 * N * L, eval_in + 4 * L))
+        half[("fused_eval", pol)]["loop_ms"] = cuda_ms(
+            lambda: ee.fused_eval(V, S, lengths, d_e0h, k_chunk=kch,
+                                  layout="loop", **kwh), R)
+        half[("two_pass_eval", pol)] = dict(
+            **kernel_ms(lambda: ee.two_pass_eval(V, S, lengths, d_e0h,
+                                                 k_chunk=kch, **kwh)),
+            plain_ms=cuda_ms(lambda: ee.two_pass_eval_plain(
+                V, S, lengths, d_e0h, **kwh), R),
+            library_ms=eval_lib,
+            bound=tc_bound(eval_flops, 3 * cells + 4 * N * L,
+                           eval_in + 4 * L * N))
+        half[("gain_eval", pol)] = dict(
+            **kernel_ms(lambda: mg.gain_eval(Vb, Vb, cacheh, **kwh)),
+            plain_ms=cuda_ms(lambda: mg.gain_eval_plain(Vb, Vb, cacheh,
+                                                        **kwh), R),
+            library_ms=gain_lib,
+            bound=tc_bound(gain_flops, 5 * N * N, gain_in + 4 * N))
+        toph = top.to(cd)
+        half[("gain_eval top256", pol)] = dict(
+            **kernel_ms(lambda: mg.gain_eval(Vb, top, cacheh, **kwh), 20),
+            plain_ms=cuda_ms(lambda: mg.gain_eval_plain(Vb, top, cacheh,
+                                                        **kwh), 20),
+            library_ms=cuda_ms(lambda: Vbh @ toph.T, 20),
+            bound=tc_bound(2.0 * N * 256 * DIM, 5 * N * 256,
+                           4 * (N * DIM + 256 * DIM + N + 256)))
+        half[("gain_update_eval", pol)] = dict(
+            **kernel_ms(lambda: mg.gain_update_eval(
+                Vb, Vb, cacheh, w1, wv1, cache_out=out_cache, **kwh)),
+            plain_ms=cuda_ms(lambda: mg.gain_update_eval_plain(
+                Vb, Vb, cacheh, w1, wv1, **kwh), R),
+            library_ms=gain_lib,
+            bound=tc_bound(gain_flops + 2.0 * N * DIM, 5 * N * N + 8 * N,
+                           gain_in + 4 * (DIM + 1) + 4 * (N + N)))
+        del Vh, Sflath, Vbh, toph
     # the sieve kernels at the streaming phase's tables: the seed and the
     # sieve table's 34 slots, the seed and salsa's 64, and 16 partitions of
     # the first (µs-scale kernels: times are device times from the
@@ -5024,10 +5244,7 @@ def phase_timing(peaks: dict, V64, Vpaper, serve_shapes) -> dict:
     del T, d, full, flush
     for name, r in rows.items():
         r["main_rel_err"] = rel[name]
-    for key, ms in extra_times.items():
-        name, field = key.split()
-        rows[name][field] = ms
-    return rows
+    return rows, half
 
 
 #: Elements of the device sieve's profiled window in phase 5: the
@@ -5168,6 +5385,9 @@ def main() -> int:
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill", rec["log"]))
         log(f"    {nm}: {len(regs)} kernels, registers "
             f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
+    log(f"    tensor-core instructions (HGMMA / HMMA in cuobjdump -sass) per "
+        f"source and policy: {json.dumps(sass_gate())} (gated: every bf16 "
+        f"and fp16 instance has some, no other kernel any)")
 
     log("[2] kernels vs plain versions (and the math oracle) on the card")
     t0 = time.perf_counter()
@@ -5314,10 +5534,20 @@ def main() -> int:
     if not train_report["gain_eval_launches"]:
         raise AssertionError("the LM training path launched no gain_eval")
 
-    log("[4] timing at the main path's shapes (fp32, CUDA events)")
+    log("[4] timing at the main path's shapes (fp32, then bf16 and fp16; "
+        "CUDA events)")
     t0 = time.perf_counter()
-    rows = phase_timing(peaks, V64, Vpaper, serve_shapes)
+    rows, half = phase_timing(peaks, V64, Vpaper, serve_shapes)
     del V64, Vpaper
+    log("    rows 1-7 at bf16 and fp16 (tensor cores; fp32 operands, as the "
+        "main path passes them): kernel ms (q1-q3), plain ms, cuBLAS in the "
+        "compute dtype ms, bound ms (by)")
+    for (name, pol), r in half.items():
+        extra = {k: v for k, v in r.items() if k in ("loop_ms",)}
+        log(f"      {name} {pol}: {r['ms']:.4f} ({r['ms_q1']:.4f}-"
+            f"{r['ms_q3']:.4f}), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {r['bound'][0]:.4f} "
+            f"({r['bound'][1]}) {json.dumps(extra)}")
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rows[name]
@@ -5340,6 +5570,16 @@ def main() -> int:
             "main_rel_err": r["main_rel_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"],
+            # the tensor-core instances (rows 1-7 at bf16 and fp16; rows
+            # 8-9 are fp32 only)
+            **({"half": {pol: {
+                "ms": half[name, pol]["ms"],
+                "plain_ms": half[name, pol]["plain_ms"],
+                "library_ms": half[name, pol]["library_ms"],
+                "bound_ms": half[name, pol]["bound"][0],
+                "bound_by": half[name, pol]["bound"][1]}
+                for pol in ("bf16", "fp16")}}
+               if (name, "bf16") in half else {}),
             # launches in the contract phase (3e)
             "audit_launches": audit_launches.get(name, 0),
             # launches over phase 3k (the suites' shapes and invariants,

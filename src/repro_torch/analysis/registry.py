@@ -484,12 +484,16 @@ KERNEL_SLACK = 8 << 20
 
 
 def kernel_bound(n: int, m: int, d: int, elem: int, batch: int = 1,
-                 fresh_candidates: bool = False) -> int:
+                 fresh_candidates: bool = False,
+                 tensor_cores: bool = False) -> int:
     """The working-set bound of a selection call on the ``cuda`` route: B
     requests of (n, d) payloads of ``elem`` bytes an element, m candidates
     scored per launch. The sum of what the kernel path holds:
 
-    * the gain kernels' partials workspace, B·⌈n/SEG⌉·m·4;
+    * the gain kernels' workspace: the partials, B·⌈n/SEG⌉·m·4, and on
+      the tensor cores (``tensor_cores``, bf16 and fp16) the row pass's
+      norms and 16-bit rows, B·n·(4 + 2·kpad(d)) and 16 bytes of
+      alignment;
     * the gathered candidate payload, B·m·d·elem; twice when the
       candidates change every round (stochastic: the next round's gather
       is made while this round's is still held);
@@ -506,7 +510,11 @@ def kernel_bound(n: int, m: int, d: int, elem: int, batch: int = 1,
     from repro_torch.kernels._build import n_segments
 
     gathered = batch * m * d * elem * (2 if fresh_candidates else 1)
-    return (batch * n_segments(n) * m * 4 + gathered + 2 * batch * n * 4
+    from repro_torch.kernels._build import workspace_floats
+
+    workspace = workspace_floats(batch * n_segments(n) * m, batch, n, d,
+                                 tensor_cores) * 4
+    return (workspace + gathered + 2 * batch * n * 4
             + 2 * batch * m * 4 + batch * n * d * 4 + WIDEN_BLOCK_ROWS * d * 4
             + KERNEL_SLACK)
 
@@ -561,6 +569,7 @@ def paper_selection_case(kind: str, policy: str, X, device, *, k: int = 10,
     memory bound is :func:`kernel_bound`."""
     from repro_torch.core import engine as eng
     from repro_torch.core.evaluator import EvalConfig
+    from repro_torch.kernels import _build
 
     Xs = list(X) if isinstance(X, (list, tuple)) else [X] * batch
     n, d = Xs[0].shape
@@ -601,8 +610,10 @@ def paper_selection_case(kind: str, policy: str, X, device, *, k: int = 10,
     exp.rounds = k
     if exp.widen_elems is not None:
         exp.widen_elems = 2 * batch * n + 16
-    exp.memory_bound = kernel_bound(n, m, d, Vs[0].element_size(), batch,
-                                    fresh_candidates=kind == "stochastic")
+    exp.memory_bound = kernel_bound(
+        n, m, d, Vs[0].element_size(), batch,
+        fresh_candidates=kind == "stochastic",
+        tensor_cores=_build.tensor_cores(cfg.resolved_policy()))
     name = "engine.select_scan" if batch == 1 \
         else "engine.select_scan_batched"
     where = "device" if batch == 1 else f"batched[B={batch}]"

@@ -2,8 +2,12 @@
 //
 // Every kernel of this package is a Gram product with a fused epilogue:
 //   d2(v_i, c_j) = max(|v_i|^2 + |c_j|^2 - 2<v_i, c_j>, 0)   [then rbf]
-// computed by SIMT FMA over tiles staged in shared memory (no tensor cores:
-// the fp32 policy is real fp32, never TF32).
+// This header is the SIMT tile of the fp32 and fp16_strict policies (P 0,
+// 3): SIMT FMA over tiles staged in shared memory, no tensor cores (fp32 is
+// real fp32, never TF32; fp16_strict accumulates in fp16 in the order its
+// plain version follows). The bf16 and fp16 policies (P 1, 2) run their
+// Gram products on the tensor cores (tc_tile.cuh), with this header's
+// segments, norms' order, second pass and dist_.
 //
 // Fixed split of n. The n rows are cut into segments of SEG = 256 rows;
 // n_segs = max(1, ceil(n / SEG)) is a function of n alone. A block owns BC
@@ -42,13 +46,14 @@
 //
 // Precision policies (P): 0 fp32, 1 bf16, 2 fp16, 3 fp16_strict. Payload
 // elements are rounded to the policy's compute dtype as they are staged
-// (__float2bfloat16_rn / __float2half_rn), exactly as the Pallas kernels
-// round inside the tile. P 0-2 keep the rounded value as a float (exact) and
-// accumulate in fp32; P 3 stores __half and accumulates with __hfma: each
-// cell's Gram term by one FMA per feature in feature order, each row norm
-// (and the update kernel's winner column) by 16 lanes, lane t over features
-// t, t+16, ..., joined by an xor butterfly (exemplar_eval._lane_sum16 and
-// _strict_dist follow this order).
+// (__float2half_rn here; __float2bfloat16_rn / __float2half_rn in
+// tc_tile.cuh), exactly as the Pallas kernels round inside the tile. The
+// SIMT tile runs P 0 in fp32 and P 3 on __half with __hfma: each cell's Gram
+// term by one FMA per feature in feature order, each row norm (and the
+// update kernel's winner column) by 16 lanes, lane t over features t, t+16,
+// ..., joined by an xor butterfly (exemplar_eval._lane_sum16 and
+// _strict_dist follow this order). P 1-2 run on the tensor cores
+// (tc_tile.cuh), their norms in the same orders in fp32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,16 +96,6 @@ template <int P> struct Pol;
 template <> struct Pol<0> {
   using S = float; using A = float;
   __device__ static S stage(float x) { return x; }
-};
-template <> struct Pol<1> {
-  using S = float; using A = float;
-  __device__ static S stage(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
-template <> struct Pol<2> {
-  using S = float; using A = float;
-  __device__ static S stage(float x) { return __half2float(__float2half_rn(x)); }
 };
 template <> struct Pol<3> {
   using S = __half; using A = __half;

@@ -189,6 +189,26 @@ def n_segments(n: int) -> int:
 
 #: Policy codes of the C entries (the template parameter P of csrc/tile.cuh).
 POLICY_CODES = {"fp32": 0, "bf16": 1, "fp16": 2, "fp16_strict": 3}
+#: The policies whose gain and exemplar-eval kernels run on the tensor
+#: cores (csrc/tc_tile.cuh); the others run the SIMT tile (csrc/tile.cuh).
+TC_POLICIES = ("bf16", "fp16")
+
+
+def tensor_cores(policy) -> bool:
+    """Whether the gain and exemplar-eval kernels run the policy on the
+    tensor cores (bf16, fp16) or on the SIMT tile (fp32, fp16_strict)."""
+    return policy.name in TC_POLICIES
+
+
+def workspace_floats(head: int, B: int, n: int, d: int, tc: bool) -> int:
+    """Floats of a gain or exemplar-eval launch's workspace: ``head``
+    partials, then, on the tensor cores (``tc``), the row pass's B·n norms
+    and (16-byte aligned) its B·n rows rounded to 16 bits and zero-padded
+    to whole K steps of 16 (csrc/tc_tile.cuh ``RowSpace``)."""
+    if not tc:
+        return head
+    kp = -(-d // 16) * 16 if d > 0 else 16
+    return ((head + B * n + 3) & ~3) + B * n * kp // 2
 
 
 def operand_code(dtype, policy) -> int:

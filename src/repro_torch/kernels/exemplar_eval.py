@@ -11,7 +11,10 @@ V streamed past them in double-buffered chunks prefetched through
 registers; an 8-row × 2-set × 2-slot register tile fed by 128-bit shared
 loads. ``fused_eval`` sums each set over its segment and a second pass
 adds the per-segment partials in segment order (no atomics), so a set's
-value depends on n and its own inputs only, not on l.
+value depends on n and its own inputs only, not on l. That is the SIMT
+tile of fp32 and fp16_strict; at bf16 and fp16 the Gram products run on
+the tensor cores (``csrc/tc_tile.cuh``: a row pass for the norms, then
+``wgmma`` over 32 sets' k slots a block), with the same segments.
 
 Two layouts of S, one kernel: ``layout="flat"`` is the k-major ``(k, l, d)``
 buffer (the analogue of the paper's round-robin interleave), ``"loop"`` the
@@ -224,8 +227,11 @@ def fused_eval(
         raise ValueError("fused_eval on CUDA tensors needs k_chunk")
     l = _as_sets(S, layout).shape[0]
     out = torch.empty(l, dtype=torch.float32, device=V.device)
-    # the per-segment partial sums the kernel's second pass adds up
-    part = torch.empty((_build.n_segments(V.shape[0]), l),
+    # the per-segment partial sums the kernel's second pass adds up, then
+    # the tensor-core kernel's row pass
+    n, d = V.shape
+    part = torch.empty(_build.workspace_floats(_build.n_segments(n) * l, 1, n,
+                                               d, _build.tensor_cores(policy)),
                        dtype=torch.float32, device=V.device)
     _launch_eval("fused_eval", "repro_fused_eval", out, part, V, S, lengths,
                  d_e0, n_total, policy, k_chunk, layout, rbf_gamma)
@@ -252,6 +258,10 @@ def two_pass_eval(
         raise ValueError("two_pass_eval on CUDA tensors needs k_chunk")
     W = torch.empty((S.shape[0], V.shape[0]), dtype=torch.float32,
                     device=V.device)
-    _launch_eval("two_pass_eval", "repro_two_pass_eval", W, None, V, S,
+    # the tensor-core kernel's row pass
+    rows = torch.empty(_build.workspace_floats(0, 1, *V.shape,
+                                               _build.tensor_cores(policy)),
+                       dtype=torch.float32, device=V.device)
+    _launch_eval("two_pass_eval", "repro_two_pass_eval", W, rows, V, S,
                  lengths, d_e0, n_total, policy, k_chunk, "loop", rbf_gamma)
     return W

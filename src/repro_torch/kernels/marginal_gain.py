@@ -12,7 +12,11 @@ tile fed by 128-bit shared loads, V prefetched through registers into a
 double buffer. Each block writes per-segment partial sums into a workspace
 the wrapper allocates; a second pass in the same C call adds them in
 segment order and divides by ``n_total``, so a candidate's gain is the same
-bits at every m, in every batch.
+bits at every m, in every batch. That is the SIMT tile of fp32 and
+fp16_strict; at bf16 and fp16 the Gram products run on the tensor cores
+(``csrc/tc_tile.cuh``: a row pass for the norms and the winner's fold, then
+``wgmma`` over 256 candidates a block), with the same segments and the same
+C entries.
 
 ONE template serves the function zoo, parameterized by the fold direction
 and an in-tile affine of the distance:
@@ -170,11 +174,14 @@ def _check_gain_operands(V, C, cache, policy, fold, affine, batched=False):
             float(a), float(b))
 
 
-def _partials(B: int, n: int, m: int, device) -> torch.Tensor:
-    """The gain kernels' workspace: (B, n_segs, m) per-segment partial sums,
-    from PyTorch's caching allocator."""
-    return torch.empty((B, _build.n_segments(n), m), dtype=torch.float32,
-                       device=device)
+def _partials(B: int, n: int, m: int, d: int, policy, device) -> torch.Tensor:
+    """The gain kernels' workspace, from PyTorch's caching allocator: the
+    (B, n_segs, m) per-segment partial sums, then the tensor-core kernels'
+    row pass (``_build.workspace_floats``)."""
+    return torch.empty(_build.workspace_floats(B * _build.n_segments(n) * m,
+                                               B, n, d,
+                                               _build.tensor_cores(policy)),
+                       dtype=torch.float32, device=device)
 
 
 @_build.kernel_call("gain_eval")
@@ -199,7 +206,7 @@ def gain_eval(
     gains = torch.empty(m, dtype=torch.float32, device=V.device)
     if m == 0:
         return gains
-    part = _partials(1, n, m, V.device)
+    part = _partials(1, n, m, d, policy, V.device)
     _build.launch(
         "gain_eval", "marginal_gain", "repro_gain_eval", V.data_ptr(),
         C.data_ptr(), cache.data_ptr(), part.data_ptr(), gains.data_ptr(), n,
@@ -240,7 +247,7 @@ def gain_update_eval(
     n, d = V.shape
     m = C.shape[0]
     gains = torch.empty(m, dtype=torch.float32, device=V.device)
-    part = _partials(1, n, m, V.device)
+    part = _partials(1, n, m, d, policy, V.device)
     _build.launch(
         "gain_update_eval", "marginal_gain", "repro_gain_update_eval",
         V.data_ptr(), C.data_ptr(), cache.data_ptr(), winner.data_ptr(),
@@ -298,7 +305,7 @@ def gain_eval_batched(
     gains = torch.empty((B, m), dtype=torch.float32, device=V.device)
     if m == 0 or B == 0:
         return gains
-    part = _partials(B, n, m, V.device)
+    part = _partials(B, n, m, d, policy, V.device)
     _build.launch(
         "gain_eval_batched", "marginal_gain", "repro_gain_eval_batched",
         V.data_ptr(), C.data_ptr(), cache.data_ptr(), part.data_ptr(),
@@ -341,7 +348,7 @@ def gain_update_eval_batched(
     gains = torch.empty((B, m), dtype=torch.float32, device=V.device)
     if B == 0:
         return gains, cache_out
-    part = _partials(B, n, m, V.device)
+    part = _partials(B, n, m, d, policy, V.device)
     # m = 0 still launches one candidate tile per request: it folds
     _build.launch(
         "gain_update_eval_batched", "marginal_gain",

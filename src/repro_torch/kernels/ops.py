@@ -41,6 +41,21 @@ SEG = _build.SEG   # rows per segment of n: one segment per block
 GAIN_BLOCK_M = (128, 32)
 #: β — shared memory one Hopper block may opt into (227 KB).
 SMEM_BUDGET = 232448
+#: The tensor-core tile of the bf16 and fp16 policies (csrc/tc_tile.cuh):
+#: two warpgroups share a 64-row tile of V (one wgmma M), streamed in
+#: chunks of 64 features (gain) or 128 (exemplar eval); d is padded to a
+#: multiple of 16 (one wgmma K) with zeros; every staged element takes 2
+#: bytes.
+TC_POLICIES = _build.TC_POLICIES
+TC_ROWS = 64        # TM: V rows per tile
+TC_CHUNK_D = 64     # KCH: V features per staged chunk of the gain kernels
+TC_EXEMPLAR_CHUNK_D = 128  # TC_KCH: the same of the exemplar-eval kernel
+TC_K_STEP = 16      # KSTEP: features per wgmma
+TC_SETS = 32        # sets per exemplar-eval block (16 a warpgroup)
+TC_SLOTS = 12       # k slots per pass at most (wgmma N = 16 sets × 12)
+#: Candidates per gain block at the tensor-core policies: 256 (128 a
+#: warpgroup) where they fit, else 64.
+TC_GAIN_BLOCK_M = (256, 64)
 n_segments = _build.n_segments
 #: Segments one block walks (csrc/tile.cuh ``segs_per_block``): the largest
 #: of 8, 4, 2, 1 that still launches ``MIN_BLOCKS`` blocks.
@@ -82,12 +97,45 @@ def _round16(x: int) -> int:
     return (x + 15) & ~15
 
 
+tensor_cores = _build.tensor_cores
+
+
+def tc_kpad(d: int) -> int:
+    """d padded to whole wgmma K steps (csrc/tc_tile.cuh ``kpad``)."""
+    return -(-d // TC_K_STEP) * TC_K_STEP if d > 0 else TC_K_STEP
+
+
+def tc_slot_cap(k_chunk: int) -> int:
+    """k slots an exemplar-eval block stages for k_chunk wanted: 1, 2, or a
+    multiple of 4 (csrc/tc_tile.cuh ``slot_cap``; a pass multiplies as many
+    slot columns)."""
+    return k_chunk if k_chunk <= 2 else -(-k_chunk // 4) * 4
+
+
 def smem_bytes(k_chunk: int, d: int, policy: PrecisionPolicy,
-               block_cols: int = BLOCK_L, winner: bool = False) -> int:
-    """Dynamic shared memory of one block — csrc/tile.cuh ``smem_bytes``:
-    k_chunk feature-major slots of ``block_cols`` columns (row stride
-    block_cols + 4), the winner (gain update), the double-buffered V chunk,
-    the column norms and the cross-row reduction buffer."""
+               block_cols: Optional[int] = None, winner: bool = False) -> int:
+    """Dynamic shared memory of one block.
+
+    SIMT (csrc/tile.cuh ``smem_bytes``): k_chunk feature-major slots of
+    ``block_cols`` columns (row stride block_cols + 4), the winner (gain
+    update), the double-buffered V chunk, the column norms and the
+    cross-row reduction buffer. Tensor cores (csrc/tc_tile.cuh
+    ``smem_bytes``): the V ring, the staged columns in 16-bit core
+    matrices — an exemplar-eval block's 32 sets ×
+    ``tc_slot_cap(k_chunk)`` slots (``block_cols=None``), or a gain block's
+    ``block_cols`` candidates —, their norms and the reduction buffer
+    (``winner`` is the SIMT tile's: the row pass holds it)."""
+    if tensor_cores(policy):
+        if block_cols is None:   # exemplar-eval
+            staged, out_cols = TC_SETS * tc_slot_cap(k_chunk), TC_SETS
+            kc = TC_EXEMPLAR_CHUNK_D
+        else:                    # gain
+            staged, out_cols = block_cols * k_chunk, block_cols
+            kc = TC_CHUNK_D
+        # the V ring: 3 chunks of 16-bit values
+        return (3 * TC_ROWS * kc * 2 + _round16(staged * tc_kpad(d) * 2)
+                + _round16(staged * 4) + 4 * out_cols * 4)
+    block_cols = BLOCK_L if block_cols is None else block_cols
     s = 2 if policy.name == "fp16_strict" else 4   # staged element
     a = policy.accum_dtype.itemsize
     return (_round16(k_chunk * d * (block_cols + 4) * s)
@@ -99,8 +147,8 @@ def smem_bytes(k_chunk: int, d: int, policy: PrecisionPolicy,
 def gain_block_cols(d: int, policy: PrecisionPolicy,
                     update: bool = False) -> int:
     """Candidates per block of the gain kernels at width d (the C
-    launcher's ``gain_rc`` rule)."""
-    wide, narrow = GAIN_BLOCK_M
+    launchers' ``gain_rc`` / ``gain_tc_nw`` rules)."""
+    wide, narrow = TC_GAIN_BLOCK_M if tensor_cores(policy) else GAIN_BLOCK_M
     return wide if smem_bytes(1, d, policy, wide, update) <= SMEM_BUDGET \
         else narrow
 
@@ -119,22 +167,28 @@ def kernel_config(k: int, d: int, policy: PrecisionPolicy,
 
     The paper stages b_x vectors of V per block, γ bytes each, under the
     shared-memory budget β: ``b_x = min(⌊1024/b_y⌋, ⌊β/γ⌋)``. Here the
-    block's b_y = 32 sets stay staged while V streams past, so the rule picks
-    how many of their k slots fit at once:
-    ``k_chunk = min(k, ⌊β'/(b_y·γ)⌋)``, with γ = d·(staged element size) and
-    β' what is left of β after the V chunk and the reduction buffers. When
-    ``k_chunk = k`` the block reads its sets from device memory once.
+    block's b_y = 32 sets stay staged while V streams past, so the rule
+    picks how many of their k
+    slots fit at once: ``k_chunk = min(k, ⌊β'/(b_y·γ)⌋)``, with
+    γ = d·(staged element size) and β' what is left of β after the V chunk
+    and the reduction buffers (on the tensor cores the staged slots are
+    ``tc_slot_cap(k_chunk)``). When ``k_chunk = k`` the block reads its sets from
+    device memory once.
     """
     fixed = smem_bytes(0, d, policy)
-    per_slot = smem_bytes(1, d, policy) - fixed
-    kc = min(k, max(0, (smem_budget - fixed) // per_slot + 1))
+    per_slot = smem_bytes(4, d, policy) - fixed
+    kc = min(k, max(0, 4 * (smem_budget - fixed) // max(1, per_slot)))
+    while kc < k and smem_bytes(kc + 1, d, policy) <= smem_budget:
+        kc += 1
     while kc > 0 and smem_bytes(kc, d, policy) > smem_budget:
         kc -= 1
+    block_l = TC_SETS if tensor_cores(policy) else BLOCK_L
     if kc < 1:
         raise ValueError(
-            f"d={d} is too wide for one staged k slot of {BLOCK_L} sets in "
+            f"d={d} is too wide for one staged k slot of {block_l} sets in "
             f"{smem_budget} bytes of shared memory at policy {policy.name}")
-    return KernelConfig(block_n=BLOCK_N, block_l=BLOCK_L, k_chunk=kc,
+    return KernelConfig(block_n=TC_ROWS if tensor_cores(policy) else BLOCK_N,
+                        block_l=block_l, k_chunk=kc,
                         smem_bytes=smem_bytes(kc, d, policy))
 
 

@@ -308,16 +308,21 @@ def test_segments_per_block_keep_narrow_launches_wide(col_blocks, n_segs,
 
 @pytest.mark.parametrize("policy", ["fp32", "bf16", "fp16", "fp16_strict"])
 def test_gain_block_width_fits_shared_memory(policy):
-    """128 candidates a block where they fit, else 32; either way the
-    block's shared memory fits the budget up to d = 1 024."""
+    """128 candidates a block where they fit, else 32 (the SIMT tile of
+    fp32 and fp16_strict); 256 where they fit, else 64 (the tensor cores of
+    bf16 and fp16); either way the block's shared memory fits the budget up
+    to d = 1 024."""
     pol = tresolve(policy)
+    wide, narrow = (tops.TC_GAIN_BLOCK_M if tops.tensor_cores(pol)
+                    else tops.GAIN_BLOCK_M)
     for update in (False, True):
-        assert tops.gain_block_cols(100, pol, update) == 128
+        assert tops.gain_block_cols(100, pol, update) == wide
         for d in (1, 45, 100, 129, 400, 1024):
             bc = tops.gain_block_cols(d, pol, update)
+            assert bc in (wide, narrow)
             assert tops.smem_bytes(1, d, pol, bc, update) <= tops.SMEM_BUDGET
-            if bc == 32:
-                assert tops.smem_bytes(1, d, pol, 128, update) > \
+            if bc == narrow:
+                assert tops.smem_bytes(1, d, pol, wide, update) > \
                     tops.SMEM_BUDGET
 
 

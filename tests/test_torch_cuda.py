@@ -380,7 +380,7 @@ def test_sieve_streaming_host_equals_device_on_the_card(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp32", "fp16_strict"])
+@pytest.mark.parametrize("policy", ["fp32", "fp16_strict", "bf16", "fp16"])
 def test_gain_columns_are_the_same_bits_at_every_m(dev, policy):
     """A candidate's gain (and its fused-update gain) is bit for bit the
     same whether it is scored among m = 1, 33, 256, 257 candidates or all
@@ -405,7 +405,7 @@ def test_gain_columns_are_the_same_bits_at_every_m(dev, policy):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("policy", ["fp32", "fp16_strict"])
+@pytest.mark.parametrize("policy", ["fp32", "fp16_strict", "bf16", "fp16"])
 def test_fused_eval_on_a_subset_equals_the_full_launch(dev, policy):
     from repro_torch.core.evaluator import e0_distances
     from repro_torch.kernels import exemplar_eval as ee
@@ -480,6 +480,125 @@ def test_segment_edge_shapes_match_plain(dev, policy):
         gp, ncp = mg.gain_update_eval_plain(V, C, cache, w, wv, **kw)
         _band(g, gp, BANDS[policy], ns)
         _band(nc, ncp, BANDS[policy], ns)
+
+
+#: The policies whose Gram products run on the tensor cores.
+HALF = ("bf16", "fp16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [255, 256, 257, 513])
+@pytest.mark.parametrize("d", [1, 45, 100, 129])
+@pytest.mark.parametrize("policy", HALF)
+def test_tensor_core_kernels_match_plain(dev, policy, d, n):
+    """The tensor-core instances at the widths the tile pads (d to whole
+    K steps of 16) and n at the segment edges: fused_eval in both layouts,
+    two_pass_eval, gain_eval and gain_update_eval (both folds), sqeuclidean
+    and rbf, against their plain versions."""
+    from repro_torch.core.evaluator import e0_distances
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    p = resolve(policy)
+    V, S, lengths, cache, _ = _problem(dev, n=n, l=37, k=7, d=d, seed=d + n,
+                                       sigma=(2 * d) ** -0.5, shift=0.1)
+    kc = ops.kernel_config(7, d, p).k_chunk
+    C, w = V[:131].contiguous(), V[n // 2].contiguous()
+    for dist, gamma in (("sqeuclidean", None), ("rbf", 1.0)):
+        g = 2.0 if gamma else 1.0
+        ns = g * float((V * V).sum(1).max() + (S * S).sum(-1).max())
+        d_e0 = e0_distances(V, None, dist, p).float().contiguous()
+        kw = dict(n_total=n, policy=p, rbf_gamma=gamma)
+        for layout, SS in (("flat", S.permute(1, 0, 2).contiguous()),
+                           ("loop", S)):
+            _band(ee.fused_eval(V, SS, lengths, d_e0, k_chunk=kc,
+                                layout=layout, **kw),
+                  ee.fused_eval_plain(V, SS, lengths, d_e0, layout=layout,
+                                      **kw), BANDS[policy], ns)
+        _band(ee.two_pass_eval(V, S, lengths, d_e0, k_chunk=kc, **kw) * n,
+              ee.two_pass_eval_plain(V, S, lengths, d_e0, **kw) * n,
+              BANDS[policy], ns)
+        for fold, aff, cch in (("min", None, d_e0),
+                               ("max", (SIM_ALPHA, SIM_BETA),
+                                torch.rand_like(cache) * 0.8)):
+            kwg = dict(kw, fold=fold, affine=aff)
+            _band(mg.gain_eval(V, C, cch, **kwg),
+                  mg.gain_eval_plain(V, C, cch, **kwg), BANDS[policy], ns)
+            for wv in (0.0, 1.0):
+                wvt = torch.tensor(wv, device=dev)
+                gu, nc = mg.gain_update_eval(V, C, cch, w, wvt, **kwg)
+                gp, ncp = mg.gain_update_eval_plain(V, C, cch, w, wvt, **kwg)
+                _band(gu, gp, BANDS[policy], ns)
+                _band(nc, ncp, BANDS[policy], ns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 64])
+@pytest.mark.parametrize("policy", HALF)
+def test_tensor_core_batched_segments_equal_unbatched(dev, policy, B):
+    """Each request of a batched tensor-core launch over several segments
+    and candidate tiles is bit for bit its own unbatched launch."""
+    from repro_torch.kernels import marginal_gain as mg
+
+    n, m, d = 600, 300, 45
+    V = torch.stack([_problem(dev, n=n, d=d, seed=40 + b)[0]
+                     for b in range(B)])
+    cache = torch.stack([_problem(dev, n=n, d=d, seed=40 + b)[3]
+                         for b in range(B)])
+    C, w = V[:, :m].contiguous(), V[:, 5].contiguous()
+    wv = torch.tensor([float(b % 2) for b in range(B)], device=dev)
+    kw = dict(n_total=n, policy=resolve(policy))
+    g = mg.gain_eval_batched(V, C, cache, **kw)
+    gu, nc = mg.gain_update_eval_batched(V, C, cache, w, wv, **kw)
+    for b in range(B):
+        assert torch.equal(g[b], mg.gain_eval(V[b], C[b], cache[b], **kw))
+        g1, nc1 = mg.gain_update_eval(V[b], C[b], cache[b], w[b], wv[b], **kw)
+        assert torch.equal(gu[b], g1) and torch.equal(nc[b], nc1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [45, 64, 100])
+@pytest.mark.parametrize("policy", HALF)
+def test_tensor_core_compute_dtype_inputs_equal_rounded_fp32(dev, policy, d):
+    """A payload already in the compute dtype gives the bits of the same
+    payload in fp32, which the row pass (V) and the column staging round,
+    whatever the rows' width and alignment (d = 45, 64, 100; a 16-bit
+    payload 2 bytes off its 16-byte alignment)."""
+    from repro_torch.core.evaluator import e0_distances
+    from repro_torch.kernels import exemplar_eval as ee
+    from repro_torch.kernels import marginal_gain as mg
+    from repro_torch.kernels import ops
+
+    p = resolve(policy)
+    cd = p.compute_dtype
+    n = 700
+    V, S, lengths, cache, _ = _problem(dev, n=n, l=41, k=6, d=d, seed=d)
+    buf = torch.empty(n * d + 1, dtype=cd, device=dev)
+    Vh_off = buf[1:].view(n, d)            # 2 bytes off 16-byte alignment
+    Vh_off.copy_(V.to(cd))
+    kc = ops.kernel_config(6, d, p).k_chunk
+    d_e0 = e0_distances(V, None, "sqeuclidean", p).float().contiguous()
+    w, wv = V[9].contiguous(), torch.ones((), device=dev)
+    kw = dict(n_total=n, policy=p)
+    for Vh in (V.to(cd), Vh_off):
+        Sh = S.to(cd)
+        for layout, SS, SSh in (("flat", S.permute(1, 0, 2).contiguous(),
+                                 Sh.permute(1, 0, 2).contiguous()),
+                                ("loop", S, Sh)):
+            assert torch.equal(
+                ee.fused_eval(V, SS, lengths, d_e0, k_chunk=kc,
+                              layout=layout, **kw),
+                ee.fused_eval(Vh, SSh, lengths, d_e0, k_chunk=kc,
+                              layout=layout, **kw))
+        assert torch.equal(
+            ee.two_pass_eval(V, S, lengths, d_e0, k_chunk=kc, **kw),
+            ee.two_pass_eval(Vh, Sh, lengths, d_e0, k_chunk=kc, **kw))
+        assert torch.equal(mg.gain_eval(V, V, cache, **kw),
+                           mg.gain_eval(Vh, Vh, cache, **kw))
+        g, nc = mg.gain_update_eval(V, V, cache, w, wv, **kw)
+        gh, nch = mg.gain_update_eval(Vh, Vh, cache, w.to(cd), wv, **kw)
+        assert torch.equal(g, gh) and torch.equal(nc, nch)
 
 
 def _mesh_rank(rank, world, X, k):

@@ -291,7 +291,8 @@ def test_gain_grid_covers_problem(n, m, d, B, update, pol):
     gx, gy, gb = ops.gain_grid(n, m, d, p, batch=B, update=update)
     cols = ops.gain_block_cols(d, p, update)
     segs = ops.n_segments(n)
-    assert gb == B and cols in ops.GAIN_BLOCK_M
+    widths = ops.TC_GAIN_BLOCK_M if ops.tensor_cores(p) else ops.GAIN_BLOCK_M
+    assert gb == B and cols in widths
     assert gx * cols >= m and (gx - 1) * cols < max(m, 1)
     assert gy * ops.segs_per_block(gx * B, segs) * ops.SEG >= n
     assert ops.smem_bytes(1, d, p, cols, update) <= ops.SMEM_BUDGET

@@ -2,10 +2,10 @@
 """Time text-patched copies of the port's CUDA kernels against the sources
 as they stand, on one GPU.
 
-    python3 tools/kernel_variants.py [gain] [exemplar]
+    python3 tools/kernel_variants.py [gain] [exemplar] [gain_tc] [exemplar_tc]
 
 A variant is a list of (old, new) substitutions applied to copies of
-``csrc/tile.cuh`` and one ``csrc/<source>.cu`` under
+``csrc/tile.cuh``, ``csrc/tc_tile.cuh`` and one ``csrc/<source>.cu`` under
 ``build/variants/<name>/``. Every ``old`` must occur in the sources, so a
 variant that no longer matches the code fails instead of timing the
 unpatched kernel. Each copy is built with the package's own nvcc flags (all
@@ -14,8 +14,11 @@ launch it unchanged. Diagnostic variants drop work and compute wrong values
 (their ``err`` column shows it); they bound what that work costs. Per
 variant: registers and spill bytes from ptxas, the error against the plain
 version on a slice, and CUDA-event times (median of 5 after 2 warm-ups) at
-the paper's shapes (n = 50 000, d = 100; l = 5 000, k = 10), fp32. The base
-is timed first and last. Results also go to
+the paper's shapes (n = 50 000, d = 100; l = 5 000, k = 10; fp32 payloads,
+as the main path passes them). The sets ``gain`` and ``exemplar`` patch the
+SIMT tile and time their variants at fp32; ``gain_tc`` and ``exemplar_tc``
+patch the tensor-core tile and time theirs at bf16 and fp16. Every set's
+base is timed first and last, at fp32, bf16 and fp16. Results also go to
 ``chiprun_out/kernel_variants.json``.
 """
 from __future__ import annotations
@@ -31,9 +34,29 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
+#: Policies every set's base is timed at.
+POLICIES = ("fp32", "bf16", "fp16")
 SPB = ("constexpr int MAX_SPB = 8;", "constexpr int MAX_SPB = 1;")
+TC_GAIN_EPILOGUE = """    if (gamma >= 0.f) {
+      if (fold_max)
+        gain_cells<NW, true, true>(colsum, acc, cn_g, q, rn, cr, ok, gamma, alpha, beta);
+      else
+        gain_cells<NW, true, false>(colsum, acc, cn_g, q, rn, cr, ok, gamma, alpha, beta);
+    } else {
+      if (fold_max)
+        gain_cells<NW, false, true>(colsum, acc, cn_g, q, rn, cr, ok, gamma, alpha, beta);
+      else
+        gain_cells<NW, false, false>(colsum, acc, cn_g, q, rn, cr, ok, gamma, alpha, beta);
+    }"""
+TC_GAIN_MMA = """    for (int kk = 0; kk < ks; ++kk)
+      mma<P, NW>(acc, desc_sw128(vb, kk),"""
+TC_EXEMPLAR_EPILOGUE = (
+    "    exemplar_cells(mraw, acc, sm.cnorm + 16 * (g * kcap + s0), q, wn, k0 + s0, len, rn);")
+TC_GAIN_BOUNDS1 = ("__global__ void __launch_bounds__(NT, 2)\ngain_tc_kernel",
+                   "__global__ void __launch_bounds__(NT, 1)\ngain_tc_kernel")
+#: (source, policies its variants are timed at, variants)
 VARIANTS = {
-    "gain": ("marginal_gain", {
+    "gain": ("marginal_gain", ("fp32",), {
         "base": [],
         # diagnostics: drop the column loads / the row loads of the Gram loop
         "no column loads": [("load_cols<RC>(b, cb + ee * bcp, tx);",
@@ -52,7 +75,7 @@ VARIANTS = {
         "ptxas registers": [("__global__ void __maxnreg__(232)",
                              "__global__ void __launch_bounds__(NT)")],
     }),
-    "exemplar": ("exemplar_eval", {
+    "exemplar": ("exemplar_eval", ("fp32",), {
         "base": [],
         "no column loads": [
             ("load_cols<ERC>(b0, c0 + ee * BCP, tx);\n"
@@ -62,19 +85,57 @@ VARIANTS = {
         "ptxas registers": [("__global__ void __maxnreg__(192)",
                              "__global__ void __launch_bounds__(NT)")],
     }),
+    "gain_tc": ("marginal_gain", ("bf16", "fp16"), {
+        "base": [],
+        # diagnostics: drop the epilogue, the MMAs, the V staging
+        "no epilogue": [(TC_GAIN_EPILOGUE, "colsum[0] += acc[0];")],
+        "no products": [(TC_GAIN_MMA, TC_GAIN_MMA.replace("kk < ks", "kk < 0"))],
+        "no V staging": [("    vs.issue(s + 2, pos);\n", ""),
+                         ("  vs.begin(pos);\n", "")],
+        "products and barriers only": [
+            (TC_GAIN_EPILOGUE, "colsum[0] += acc[0];"),
+            ("    vs.issue(s + 2, pos);\n", ""), ("  vs.begin(pos);\n", "")],
+        # designs
+        "one block an SM": [TC_GAIN_BOUNDS1],
+        "64 candidates a warpgroup": [
+            ("constexpr int TC_NW = 128;", "constexpr int TC_NW = 64;")],
+    }),
+    "exemplar_tc": ("exemplar_eval", ("bf16", "fp16"), {
+        "base": [],
+        "no epilogue": [(TC_EXEMPLAR_EPILOGUE,
+                         "    mraw[0][0] = fminf(mraw[0][0], acc[0]);")],
+        "no products": [("    mma<P, N>(acc, desc_sw128(vb, kk)",
+                         "    if (0) mma<P, N>(acc, desc_sw128(vb, kk)")],
+        "products and barriers only": [
+            (TC_EXEMPLAR_EPILOGUE, "    mraw[0][0] = fminf(mraw[0][0], acc[0]);"),
+            ("    vs.issue(s + 2, pos);\n", ""), ("  vs.begin(pos);\n", "")],
+        "12 slot columns a pass": [("w = slot_cap(wn);", "w = TC_SLOTS;")],
+        "two blocks an SM": [("__global__ void __launch_bounds__(NT, 1)\n"
+                              "exemplar_tc_kernel",
+                              "__global__ void __launch_bounds__(NT, 2)\n"
+                              "exemplar_tc_kernel")],
+        "no V staging": [("    vs.issue(s + 2, pos);\n", ""),
+                         ("  vs.begin(pos);\n", "")],
+    }),
 }
 
 
-def build(name: str, src: str, subs, nvcc: str, csrc: Path, flags):
-    out = ROOT / "build" / "variants" / re.sub(r"\W+", "_", f"{src}_{name}")
-    out.mkdir(parents=True, exist_ok=True)
-    texts = {f: (csrc / f).read_text() for f in ("tile.cuh", f"{src}.cu")}
+def patched(name: str, src: str, subs, csrc: Path) -> dict:
+    """The variant's copies of the sources, {file name: text}."""
+    texts = {f: (csrc / f).read_text()
+             for f in ("tile.cuh", "tc_tile.cuh", f"{src}.cu")}
     for old, new in subs:
         hits = [f for f, t in texts.items() if old in t]
         if not hits:
             raise SystemExit(f"variant {name!r}: {old[:60]!r} is not in the "
                              f"sources")
         texts[hits[0]] = texts[hits[0]].replace(old, new)
+    return texts
+
+
+def build(name: str, src: str, texts: dict, nvcc: str, flags):
+    out = ROOT / "build" / "variants" / re.sub(r"\W+", "_", f"{src}_{name}")
+    out.mkdir(parents=True, exist_ok=True)
     for f, t in texts.items():
         (out / f).write_text(t)
     lib = out / "lib.so"
@@ -110,7 +171,7 @@ def main(sets) -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.core.evaluator import e0_distances
-    from repro_torch.core.precision import FP32
+    from repro_torch.core.precision import resolve
     from repro_torch.data.synthetic import uniform_problem
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import exemplar_eval as ee
@@ -118,12 +179,12 @@ def main(sets) -> int:
 
     print(cs.card_line(), flush=True)
     nvcc = _build._nvcc()
-    procs = {}
-    for s in sets:
-        src, variants = VARIANTS[s]
-        for name, subs in variants.items():
-            procs[s, name] = build(name, src, subs, nvcc, _build.CSRC,
-                                   _build.NVCC_FLAGS)
+    # every variant's substitutions are checked before any build starts
+    texts = {(s, name): patched(name, VARIANTS[s][0], subs, _build.CSRC)
+             for s in sets for name, subs in VARIANTS[s][2].items()}
+    procs = {(s, name): build(f"{s} {name}", VARIANTS[s][0], t, nvcc,
+                              _build.NVCC_FLAGS)
+             for (s, name), t in texts.items()}
     libs, report = {}, {}
     for (s, name), (proc, path) in procs.items():
         log, _ = proc.communicate()
@@ -146,44 +207,50 @@ def main(sets) -> int:
                         ).reshape(L, K, D)
     Sk = S.permute(1, 0, 2).contiguous()
     lengths = torch.full((L,), K, dtype=torch.int32, device=dev)
-    d_e0 = e0_distances(V, None, "sqeuclidean", FP32).contiguous()
-    kc = ops.kernel_config(K, D, FP32).k_chunk
     top, w = V[:256].contiguous(), V[5].contiguous()
     wv = torch.ones((), device=dev)
-    kw = dict(n_total=N, policy=FP32)
     part = (Sk[:, :300].contiguous(), lengths[:300].contiguous())
-    ref_g = mg.gain_eval_plain(V, top, d_e0, **kw)
-    ref_f = ee.fused_eval_plain(V, *part, d_e0, layout="flat", **kw)
 
     def rel(got, ref):
         torch.cuda.synchronize()
         return float((got - ref).abs().max() / ref.abs().max())
 
+    def run(src, pol):
+        """(error on a slice, times) of the loaded library at one policy."""
+        p = resolve(pol)
+        d_e0 = e0_distances(V, None, "sqeuclidean", p).contiguous()
+        kw = dict(n_total=N, policy=p)
+        if src == "marginal_gain":
+            err = rel(mg.gain_eval(V, top, d_e0, **kw),
+                      mg.gain_eval_plain(V, top, d_e0, **kw))
+            return err, {
+                "gain_eval m=256": cs.cuda_ms(
+                    lambda: mg.gain_eval(V, top, d_e0, **kw), 20),
+                "gain_eval m=50000": cs.cuda_ms(
+                    lambda: mg.gain_eval(V, V, d_e0, **kw), 5),
+                "gain_update_eval m=50000": cs.cuda_ms(
+                    lambda: mg.gain_update_eval(V, V, d_e0, w, wv, **kw), 5)}
+        kc = ops.kernel_config(K, D, p).k_chunk
+        err = rel(ee.fused_eval(V, *part, d_e0, k_chunk=kc, layout="flat",
+                                **kw),
+                  ee.fused_eval_plain(V, *part, d_e0, layout="flat", **kw))
+        return err, {
+            "fused_eval l=5000": cs.cuda_ms(
+                lambda: ee.fused_eval(V, Sk, lengths, d_e0, k_chunk=kc,
+                                      layout="flat", **kw), 5),
+            "two_pass_eval l=5000": cs.cuda_ms(
+                lambda: ee.two_pass_eval(V, S, lengths, d_e0, k_chunk=kc,
+                                         **kw), 5)}
+
     for s in sets:
-        src, variants = VARIANTS[s]
+        src, policies, variants = VARIANTS[s]
         for name in list(variants) + ["base"]:
             _build._LIBS[src] = libs[s, name]
             r = report[f"{s} / {name}"]
-            if src == "marginal_gain":
-                r["err"] = rel(mg.gain_eval(V, top, d_e0, **kw), ref_g)
-                t = {"gain_eval m=256": cs.cuda_ms(
-                         lambda: mg.gain_eval(V, top, d_e0, **kw), 20),
-                     "gain_eval m=50000": cs.cuda_ms(
-                         lambda: mg.gain_eval(V, V, d_e0, **kw), 5),
-                     "gain_update_eval m=50000": cs.cuda_ms(
-                         lambda: mg.gain_update_eval(V, V, d_e0, w, wv, **kw),
-                         5)}
-            else:
-                r["err"] = rel(ee.fused_eval(V, *part, d_e0, k_chunk=kc,
-                                             layout="flat", **kw), ref_f)
-                t = {"fused_eval l=5000": cs.cuda_ms(
-                         lambda: ee.fused_eval(V, Sk, lengths, d_e0,
-                                               k_chunk=kc, layout="flat",
-                                               **kw), 5),
-                     "two_pass_eval l=5000": cs.cuda_ms(
-                         lambda: ee.two_pass_eval(V, S, lengths, d_e0,
-                                                  k_chunk=kc, **kw), 5)}
-            r.setdefault("ms", []).append(t)
+            for pol in (POLICIES if name == "base" else policies):
+                err, t = run(src, pol)
+                r.setdefault("err", {})[pol] = err
+                r.setdefault("ms", {}).setdefault(pol, []).append(t)
             print(f"{s} / {name}: {json.dumps(r)}", flush=True)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
