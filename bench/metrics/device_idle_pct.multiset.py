@@ -1,0 +1,6 @@
+"""Share of the traced window in which no operation ran on the device."""
+from bench.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
